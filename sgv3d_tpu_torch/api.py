@@ -28,13 +28,17 @@ class BEVHeightPredictor:
     geometry on every frame after its first. `cull_pixels` (default: on when
     the rig is static and the lift is top-k) drops, once per rig, the pixels
     whose whole height ray misses the BEV grid. `use_bf16` runs the image
-    backbone, neck and HeightNet in bf16 on CUDA; everything else is float32
-    with TF32 off.
+    backbone, neck and HeightNet (MSCThead) in bf16 on CUDA; everything else
+    is float32 with TF32 off. `fused_convs` (opt-in, as in the JAX package)
+    runs the image ResNet's identity bottlenecks through the fused kernel
+    K3; it needs the bf16 image side on CUDA and a ResNet of depth >= 50,
+    and raises `ValueError` where it cannot be honoured.
     """
 
     def __init__(self, cfg: ExpConfig, state_dict: Mapping[str, torch.Tensor],
                  device: str | torch.device = "cuda", use_bf16: bool = True,
-                 static_rig: bool = True, cull_pixels: bool | None = None):
+                 static_rig: bool = True, cull_pixels: bool | None = None,
+                 fused_convs: bool = False):
         if cull_pixels is None:
             cull_pixels = static_rig and cfg.backbone.lift_top_k is not None
         elif cull_pixels and (not static_rig or cfg.backbone.lift_top_k is None):
@@ -45,15 +49,23 @@ class BEVHeightPredictor:
         self.cull_pixels = cull_pixels
         self.device = torch.device(device)
         on_cuda = self.device.type == "cuda"
+        use_bf16 = use_bf16 and on_cuda
+        if fused_convs and (not use_bf16 or cfg.backbone.resnet_depth < 50):
+            raise ValueError(
+                f"fused_convs=True requires the bf16 image side on CUDA and a "
+                f"ResNet of depth >= 50; got device {self.device}, use_bf16="
+                f"{use_bf16}, depth {cfg.backbone.resnet_depth}")
         # cuDNN's float32 convs default to TF32; the geometry and the head
         # must keep float32's digits
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        self.model = BEVHeight(cfg, use_bf16=use_bf16 and on_cuda)
+        self.model = BEVHeight(cfg, use_bf16=use_bf16, fused_convs=fused_convs)
         self.model.load_state_dict(state_dict, strict=True)
         self.model.to(self.device).eval()
         if on_cuda:     # the bf16 image side; the fp32 head stays NCHW
             self.model.backbone.to(memory_format=torch.channels_last)
+        if fused_convs:     # once per predictor, on the device
+            self.model.backbone.img_backbone.fold()
         grid = cfg.backbone.voxel_grid
         self._num_cells = int(grid.voxel_num[0]) * int(grid.voxel_num[1])
         self._cells = None          # (cells, pix_keep or None) once cached

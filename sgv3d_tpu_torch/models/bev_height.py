@@ -9,7 +9,7 @@ from torch import nn
 
 from sgv3d_tpu_torch.config import ExpConfig
 from sgv3d_tpu_torch.heads.bev_head import BEVHeightHead
-from sgv3d_tpu_torch.nn.lss_fpn import LSSFPN
+from sgv3d_tpu_torch.nn.lss_fpn import BSMLSSFPN, LSSFPN
 
 
 def normalize_images(imgs: torch.Tensor, cfg: ExpConfig) -> torch.Tensor:
@@ -25,18 +25,20 @@ def normalize_images(imgs: torch.Tensor, cfg: ExpConfig) -> torch.Tensor:
 
 
 class BEVHeight(nn.Module):
-    def __init__(self, cfg: ExpConfig, use_bf16: bool = False):
+    def __init__(self, cfg: ExpConfig, use_bf16: bool = False,
+                 fused_convs: bool = False):
         super().__init__()
-        if cfg.backbone.is_bsm:
-            raise NotImplementedError("the SGV3D (BSM) backbone is not ported yet")
         self.cfg = cfg
-        self.backbone = LSSFPN(cfg.backbone, use_bf16)
+        backbone_cls = BSMLSSFPN if cfg.backbone.is_bsm else LSSFPN
+        self.backbone = backbone_cls(cfg.backbone, use_bf16, fused_convs)
         self.head = BEVHeightHead(cfg.head)
 
     def forward(self, sweep_imgs, mats: Mapping[str, torch.Tensor],
                 cells=None, pix_keep=None):
         """sweep_imgs (B, S, N, H, W, 3) uint8 or normalised float32.
-        Returns (task_preds, aux), as the JAX model does at eval."""
+        Returns (task_preds, aux), as the JAX model does at eval: aux is the
+        (assist, assist) pair for BEVHeight, the (semantic0, semantic1)
+        logits for SGV3D."""
         sweep_imgs = normalize_images(sweep_imgs, self.cfg)
         bev, aux = self.backbone(sweep_imgs, mats, cells, pix_keep)
         return self.head(bev), aux

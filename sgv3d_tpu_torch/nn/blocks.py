@@ -11,6 +11,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sgv3d_tpu_torch.ops.resize import resize_bilinear
+
 
 def conv(cin: int, cout: int, kernel: int, stride: int = 1,
          padding: int | None = None, dilation: int = 1,
@@ -74,13 +76,18 @@ class BasicBlock(nn.Module):
 
 
 class Mlp(nn.Module):
+    """Two dense layers, always float32: the flax `Mlp` has no dtype, so
+    the camera vector's SE gates stay float32 inside a bf16 region."""
+
     def __init__(self, cin: int, hidden: int, out: int):
         super().__init__()
         self.fc1 = nn.Linear(cin, hidden)
         self.fc2 = nn.Linear(hidden, out)
 
     def forward(self, x):
-        return self.fc2(F.relu(self.fc1(x)))
+        with torch.autocast(x.device.type, enabled=False):
+            x = x.float()
+            return self.fc2(F.relu(self.fc1(x)))
 
 
 class SELayer(nn.Module):
@@ -130,6 +137,50 @@ class ASPP(nn.Module):
         branches.append(g.expand_as(branches[0]))
         out = self.proj_conv(torch.cat(branches, dim=1))
         return F.relu(self.proj_bn(out))
+
+
+class SABlock(nn.Module):
+    """Spatial attention: conv(x) gated by sigmoid(attention_conv(y))."""
+
+    def __init__(self, cin_x: int, cin_y: int, channels: int):
+        super().__init__()
+        self.attention_conv = conv(cin_y, channels, 3, bias=False)
+        self.conv = conv(cin_x, channels, 3, bias=False)
+
+    def forward(self, x, y):
+        return self.conv(x) * torch.sigmoid(self.attention_conv(y))
+
+
+class TaskHead(nn.Module):
+    """Two BasicBlocks + ConvBNReLU decoder + 1x1 prediction head. Returns
+    (pred, feat) or, with `return_feat=False`, pred alone."""
+
+    def __init__(self, cin: int, mid: int, out: int):
+        super().__init__()
+        self.block1 = BasicBlock(cin, mid)
+        self.block2 = BasicBlock(mid, mid)
+        self.decoder_out = ConvBNReLU(mid, mid, 3)
+        self.head = conv(mid, out, 1)
+
+    def forward(self, x, return_feat: bool = True):
+        feat = self.decoder_out(self.block2(self.block1(x)))
+        pred = self.head(feat)
+        return (pred, feat) if return_feat else pred
+
+
+class TaskFPN(nn.Module):
+    """Upsample the coarse feature x2 (half-pixel bilinear), reduce it, and
+    add the fine scale gated by spatial attention on the upsampled map."""
+
+    def __init__(self, cin_coarse: int, cin_fine: int, out: int):
+        super().__init__()
+        self.reduce_conv = conv(cin_coarse, out, 3)
+        self.self_attention = SABlock(cin_fine, out, out)
+
+    def forward(self, feat0, feat1):
+        up = resize_bilinear(feat0.permute(0, 2, 3, 1), scale=2)
+        up = self.reduce_conv(up.permute(0, 3, 1, 2))
+        return up + self.self_attention(feat1, up)
 
 
 class SeparateTaskBranch(nn.Module):

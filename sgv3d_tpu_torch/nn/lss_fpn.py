@@ -2,9 +2,10 @@
 
 The public layouts are the JAX package's: images (B, S, N, H, W, 3), height
 (BN, fH, fW, D), cells (BN, HW, D) for the top-k lift, BEV (B, Y, X, C).
-The image backbone, neck and HeightNet run in bf16 under autocast when
-`use_bf16` is set (on CUDA); geometry, the softmax, the lift and the pooling
-stay float32.
+The image backbone, neck and HeightNet (or MSCThead) run in bf16 under
+autocast when `use_bf16` is set (on CUDA); geometry, the softmaxes, the
+lift and the pooling stay float32. `fused_convs` runs the image ResNet's
+identity bottlenecks through the fused kernel K3 (`nn.resnet`).
 """
 from __future__ import annotations
 
@@ -17,11 +18,14 @@ from sgv3d_tpu_torch import geom
 from sgv3d_tpu_torch.config import BackboneConfig
 from sgv3d_tpu_torch.nn.blocks import conv
 from sgv3d_tpu_torch.nn.height_net import HeightNet
+from sgv3d_tpu_torch.nn.msct_head import MSCThead
 from sgv3d_tpu_torch.nn.resnet import ResNet
 from sgv3d_tpu_torch.nn.second_fpn import SECONDFPN
 from sgv3d_tpu_torch.ops.lift_splat import lift_splat_forward
 from sgv3d_tpu_torch.ops.voxel_pooling import (
     flatten_voxel_index, topk_lift_inputs_hwd)
+
+BG_THRESHOLD = 0.45     # SGV3D keeps a pixel while P(background) <= this
 
 
 def _frustum_voxels(cfg: BackboneConfig, mats, sweep: int,
@@ -107,12 +111,13 @@ def _lift_and_splat(cfg: BackboneConfig, height_prob, tran_feat, mats, sweep,
 class LSSFPN(nn.Module):
     """BEVHeight backbone: ResNet + SECONDFPN -> HeightNet -> lift-splat."""
 
-    def __init__(self, cfg: BackboneConfig, use_bf16: bool = False):
+    def __init__(self, cfg: BackboneConfig, use_bf16: bool = False,
+                 fused_convs: bool = False):
         super().__init__()
         self.cfg = cfg
         self.use_bf16 = use_bf16
         neck_in = sum(cfg.img_neck_out_channels)
-        self.img_backbone = ResNet(cfg.resnet_depth)
+        self.img_backbone = ResNet(cfg.resnet_depth, fused=fused_convs)
         self.img_neck = SECONDFPN(cfg.resnet_out_channels,
                                   cfg.img_neck_out_channels, (0.25, 0.5, 1, 2))
         self.height_net = HeightNet(neck_in, cfg.height_net_mid_channels[0],
@@ -145,3 +150,56 @@ class LSSFPN(nn.Module):
                 pix_keep if sweep == 0 else None))
         out = torch.cat(maps, dim=-1) if s > 1 else maps[0]
         return out, (assist, assist)
+
+
+class BSMLSSFPN(nn.Module):
+    """SGV3D backbone: ResNet, two SECONDFPN necks (stride 16 and 8),
+    MSCThead, background suppression, lift-splat at stride 8."""
+
+    def __init__(self, cfg: BackboneConfig, use_bf16: bool = False,
+                 fused_convs: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        self.use_bf16 = use_bf16
+        neck = sum(cfg.img_neck_out_channels)
+        self.img_backbone = ResNet(cfg.resnet_depth, fused=fused_convs)
+        self.img_neck_16 = SECONDFPN(cfg.resnet_out_channels,
+                                     cfg.img_neck_out_channels, (0.25, 0.5, 1, 2))
+        self.img_neck_8 = SECONDFPN(cfg.resnet_out_channels,
+                                    cfg.img_neck_out_channels, (0.5, 1, 2, 4))
+        self.height_net = MSCThead(neck, neck, tuple(cfg.height_net_mid_channels),
+                                   cfg.num_height_bins, cfg.semantic_channels,
+                                   cfg.output_channels)
+
+    def forward(self, sweep_imgs, mats: Mapping[str, torch.Tensor],
+                cells=None, pix_keep=None):
+        """sweep_imgs (B, S, N, H, W, 3) float32. Returns BEV
+        (B, Y, X, (C+S)*S) float32 and the key sweep's (semantic0,
+        semantic1) logits, NCHW. `cells`/`pix_keep` apply to the key sweep
+        only."""
+        cfg = self.cfg
+        b, s, n = sweep_imgs.shape[:3]
+        mlp_input = geom.camera_mlp_input(
+            mats["intrin_mats"][:, 0], mats["ida_mats"][:, 0],
+            mats["sensor2ego_mats"][:, 0], mats["bda_mat"])
+        maps = []
+        for sweep in range(s):
+            imgs = sweep_imgs[:, sweep].reshape(b * n, *sweep_imgs.shape[3:])
+            with torch.autocast(imgs.device.type, dtype=torch.bfloat16,
+                                enabled=self.use_bf16):
+                feats = self.img_backbone(imgs.permute(0, 3, 1, 2))
+                depth1, semantic1, context1, semantic0 = self.height_net(
+                    self.img_neck_16(feats), self.img_neck_8(feats), mlp_input)
+            height = torch.softmax(depth1.float(), dim=1).permute(0, 2, 3, 1)
+            semantic = torch.softmax(semantic1.float(), dim=1)
+            # background suppression: drop pixels with P(background) > thr
+            keep = (semantic[:, 0:1] <= BG_THRESHOLD).float()
+            tran_feat = torch.cat([context1.float(), semantic], dim=1) * keep
+            maps.append(_lift_and_splat(
+                cfg, height, tran_feat.permute(0, 2, 3, 1), mats, sweep,
+                cells if sweep == 0 else None,
+                pix_keep if sweep == 0 else None))
+            if sweep == 0:
+                aux = (semantic0, semantic1)
+        out = torch.cat(maps, dim=-1) if s > 1 else maps[0]
+        return out, aux

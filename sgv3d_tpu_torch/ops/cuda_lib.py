@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-All sources in `sgv3d_tpu_torch/csrc/*.cu` are compiled by `nvcc` for
-`sm_90a` into one shared library with a plain C interface, loaded with
-`ctypes`. The build happens at first use, into `build/kernels/<hash>/` at
-the repository root (listed in `.gitignore`), keyed by a hash of the sources
-and flags, so a fresh checkout builds everything on its first kernel call.
-There is no fallback: a missing `nvcc` or a failed build raises.
+Each source in `sgv3d_tpu_torch/csrc/*.cu` is compiled by its own `nvcc`
+for `sm_90a`, all started together, and the objects are linked into one
+shared library with a plain C interface, loaded with `ctypes`. The build
+happens at first use, into `build/kernels/<hash>/` at the repository root
+(listed in `.gitignore`), keyed by a hash of the sources and flags, so a
+fresh checkout builds everything on its first kernel call. There is no
+fallback: a missing `nvcc` or a failed build raises.
 """
 from __future__ import annotations
 
@@ -31,6 +32,12 @@ SIGNATURES = {
     "topk_cells_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (height, context, order, offsets, out, batch, num_cells, j, hw, c, stream)
     "lift_splat_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (x, w1, b1, w2, b2, w3, b3, out, batch, h, w, p, th, tw, smem, stream)
+    "fused_bottleneck_launch": [_P] * 8 + [_I] * 7 + [_P],
+    # (ctx, idx, out, m, hw, c, stream)
+    "spike_take_launch": [_P, _P, _P, _I, _I, _I, _P],
+    "spike_take_along_launch": [_P, _P, _P, _I, _I, _I, _P],
+    "spike_onehot_launch": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -58,7 +65,7 @@ def source_hash() -> str:
 
 def build() -> Path:
     """Compile the library if this source hash has not been built yet and
-    return its path; the compiler's report goes to `nvcc.log` beside it.
+    return its path; the compilers' reports go to `nvcc.log` beside it.
     The library is written to a temporary file first, so a concurrent or
     interrupted build never leaves a half-written one behind."""
     out_dir = BUILD_ROOT / source_hash()
@@ -66,16 +73,32 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    jobs = []
+    for src in _sources():
+        obj = out_dir / f"{src.stem}.o"
+        cmd = [nvcc, *compile_flags, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(obj) for _, obj, _ in jobs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
     # ptxas' register / shared-memory / spill report for each kernel
-    (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
+    (out_dir / "nvcc.log").write_text("".join(log) + proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return lib
 

@@ -4,14 +4,20 @@ Imports no jax, so it runs on a machine with a card and no jax:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 Here, without a card, every test skips (the `cuda_device` fixture decides
 at run time). K1 must be exact; K2 within 1e-5 * max|ref| + 1e-6 (the sums
-run in another order than `index_add_`) and bitwise equal across runs.
+run in another order than `index_add_`) and bitwise equal across runs; K3
+within 2e-2 * max|plain| (y1 and y2 rounded to bf16 after sums in another
+order) and bitwise equal across runs, its padding exact; K4 exact.
 """
+import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+from sgv3d_tpu_torch.ops.fused_bottleneck import (
+    FoldedBottleneck, fused_bottleneck, fused_bottleneck_plain)
 from sgv3d_tpu_torch.ops.lift_splat import lift_splat_forward, lift_splat_plain
 from sgv3d_tpu_torch.ops.topk_cells import topk_cells_plain, topk_with_cells
+from sgv3d_tpu_torch.tools import spike_gather
 
 pytestmark = pytest.mark.cuda
 
@@ -46,6 +52,7 @@ def test_topk_kernel_matches_plain(cuda_device, d, k, hw):
 
 
 @pytest.mark.parametrize("j,hw,c,batch,n", [(16, 4608, 80, 4, 4),
+                                            (16, 18432, 87, 4, 4),
                                             (90, 300, 87, 2, 4),
                                             (3, 64, 16, 1, 1)])
 def test_lift_splat_kernel_matches_plain(cuda_device, j, hw, c, batch, n):
@@ -70,3 +77,65 @@ def test_tiny_predictor_card_matches_cpu(cuda_device):
     """chip_smoke's tiny phase: the served slice on the card (float32) and
     on the CPU agree."""
     chip_smoke.phase_tiny(cuda_device)     # raises on any disagreement
+
+
+@pytest.mark.parametrize("p,h,w", [(64, 16, 32), (64, 13, 21), (512, 11, 7),
+                                   (128, 9, 10)])
+def test_fused_bottleneck_kernel_matches_plain(cuda_device, p, h, w):
+    """Small shapes and odd ones (H, W not multiples of the 8x8 / 8x16
+    tile), with large positive BN biases."""
+    block, fb = chip_smoke.seeded_bottleneck(4 * p, p, seed=p + h,
+                                             device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(h)
+    x = torch.randn(2, h, w, 4 * p, generator=g,
+                    device=cuda_device).to(torch.bfloat16)
+    before = fused_bottleneck.launches
+    a, b = fused_bottleneck(x, fb), fused_bottleneck(x, fb)
+    ref = fused_bottleneck_plain(x, fb).float()
+    assert fused_bottleneck.launches == before + 2
+    assert torch.equal(a, b)
+    assert float((a.float() - ref).abs().max()) <= 2e-2 * float(ref.abs().max())
+    with pytest.raises(ValueError):
+        fused_bottleneck(x[:, :, :, :-32].contiguous(), fb)
+    with pytest.raises(TypeError):
+        fused_bottleneck(x.float(), fb)
+
+
+@pytest.mark.parametrize("h,w", [(6, 8), (13, 20)])
+def test_fused_bottleneck_padding_is_zero_in_y1_space(cuda_device, h, w):
+    """w1 = 0, b1 = 1, w2 = w3 = 1: each output counts conv2's taps inside
+    the image times P * P, exactly (a leaked relu(b1) would add taps)."""
+    p = 64
+    c = 4 * p
+    dev = cuda_device
+    fb = FoldedBottleneck(
+        w1=torch.zeros(p, c, dtype=torch.bfloat16, device=dev),
+        b1=torch.ones(p, device=dev),
+        w2=torch.ones(p, 9 * p, dtype=torch.bfloat16, device=dev),
+        b2=torch.zeros(p, device=dev),
+        w3=torch.full((c, p), 1 / 64, dtype=torch.bfloat16, device=dev),
+        b3=torch.zeros(c, device=dev))
+    out = fused_bottleneck(torch.zeros(1, h, w, c, dtype=torch.bfloat16,
+                                       device=dev), fb)
+    taps = np.full((h, w), 9.0)
+    taps[[0, -1], :] = 6.0
+    taps[:, [0, -1]] = 6.0
+    taps[np.ix_([0, -1], [0, -1])] = 4.0
+    want = torch.from_numpy(taps * p).float()[..., None].expand(h, w, c)
+    assert torch.equal(out[0].float().cpu(), want)
+
+
+def test_spike_gather_kernels_are_exact(cuda_device):
+    ctx, idx = spike_gather.probe_inputs(cuda_device)
+    ref = spike_gather.gather_plain(ctx, idx)
+    for name, fn in spike_gather.FORMULATIONS:
+        before = fn.launches
+        got = fn(ctx, idx)
+        assert fn.launches == before + 1, name
+        assert torch.equal(got, ref), name
+        odd = fn(ctx, idx[:3, :77])             # rows not a multiple of a block
+        assert torch.equal(odd, ref[:3, :77]), name
+        outside = torch.tensor([-1, ctx.shape[0], 5], dtype=torch.int32,
+                               device=cuda_device)
+        got = fn(ctx, outside)                  # zero rows, no stray reads
+        assert not got[:2].any() and torch.equal(got[2], ctx[5]), name
