@@ -167,6 +167,22 @@ def _cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+# NVIDIA's data sheet for the H100 SXM (dense): bf16 tensor cores, float32
+# outside them, HBM3
+PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def _bound(tensors, flops: float, peak_flops: float) -> tuple[float, str]:
+    """The least time the card could take, in ms: the larger of the bytes
+    of `tensors` (each input read once, each output written once) over
+    HBM's rate and `flops` over `peak_flops`, and which of the two it is."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def _wall_ms(call, n: int) -> list[float]:
     """Host wall time of `call(i)` for i < n, each ending in the readback
     of its detections (so the card has finished), in ms."""
@@ -204,11 +220,16 @@ def phase_kernels(dev, smi) -> list[dict]:
     n, d, k, num_cells = 4, 90, 16, 16384
     k1 = {"name": "topk_cells", "route": "cuda",
           "source": "sgv3d_tpu_torch/csrc/topk_cells.cu",
-          "replaces": "sgv3d_tpu/ops/pallas_topk.py:50", "max_abs_err": 0.0}
+          "replaces": "sgv3d_tpu/ops/pallas_topk.py:50", "max_abs_err": 0.0,
+          "launches_per_forward": 1,
+          "library_note": "torch.topk(h, k, dim=-1): values and indices "
+                          "only; no tie order, no cells"}
     k2 = {"name": "lift_splat", "route": "cuda",
           "source": "sgv3d_tpu_torch/csrc/lift_splat.cu",
           "replaces": "sgv3d_tpu/ops/pallas_lift_splat.py:87",
-          "max_abs_err": 0.0}
+          "max_abs_err": 0.0, "launches_per_forward": 1, "library_ms": None,
+          "library_note": "none: no single PyTorch call forms height x "
+                          "context and segment-sums it into cells"}
     for path, hw, hw_all, c in (("sgv3d_r50", 18432, 20736, 87),
                                 ("r101", 4608, 5184, 80)):
         suffix = "" if path == "sgv3d_r50" else "_r101"
@@ -230,10 +251,17 @@ def phase_kernels(dev, smi) -> list[dict]:
                                  f"at {int(bad.sum())} of {bad.numel()} outputs")
         k1["ms" + suffix] = _cuda_ms(lambda: topk_with_cells(h, cells, k))
         k1["plain_ms" + suffix] = _cuda_ms(lambda: topk_cells_plain(h, cells, k))
+        k1["library_ms" + suffix] = _cuda_ms(lambda: torch.topk(h, k, dim=-1))
+        # one compare a candidate bin, on the fp32 cores
+        k1["bound_ms" + suffix], k1["bound_by" + suffix] = _bound(
+            (h, cells) + tuple(got), h.numel(), PEAK_FP32_FLOPS)
         k1["shape" + suffix] = [n, hw, d, k]
         print(f"[kernels] K1 topk_cells {path} ({n}, {hw}, {d}) k={k}: exact; "
               f"kernel {k1['ms' + suffix]:.4f} ms, plain "
-              f"{k1['plain_ms' + suffix]:.4f} ms ({smi})")
+              f"{k1['plain_ms' + suffix]:.4f} ms, torch.topk "
+              f"{k1['library_ms' + suffix]:.4f} ms, bound "
+              f"{k1['bound_ms' + suffix]:.4f} ms ({k1['bound_by' + suffix]}) "
+              f"({smi})")
 
         # K2 in both layouts into 128x128 cells; a quarter of the points in
         # the trash cell, as off-grid bins are on the main path
@@ -261,12 +289,16 @@ def phase_kernels(dev, smi) -> list[dict]:
             plain_ms = _cuda_ms(lambda: lift_splat_plain(*args))
             k2["max_abs_err"] = max(k2["max_abs_err"], err)
             tag = suffix if layout == "top-k" else "_all_bin" + suffix
+            # one multiply-add a (point, channel), on the fp32 cores
+            bound_ms, bound_by = _bound((height, ctx, cl, out1),
+                                        2 * height.numel() * c, PEAK_FP32_FLOPS)
             k2.update({"ms" + tag: ms, "plain_ms" + tag: plain_ms,
+                       "bound_ms" + tag: bound_ms, "bound_by" + tag: bound_by,
                        "shape" + tag: [n, j, hwl, c]})
             print(f"[kernels] K2 lift_splat {path} {layout} ({n}, {j}, {hwl}) x "
                   f"C={c}: max|err| {err:.3e} <= {bound:.3e}, bitwise "
-                  f"deterministic; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                  f"({smi})")
+                  f"deterministic; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms ({bound_by}) ({smi})")
     return [k1, k2]
 
 
@@ -294,35 +326,64 @@ def seeded_bottleneck(c: int, p: int, seed: int, device):
     return block, fold_bottleneck(block)
 
 
+# ragged shapes: H and W not multiples of any tile, so the halo predicate
+# and the ring's last stages are exercised at a partial tile on every side
+K3_RAGGED = ((1, 13, 21, 256), (2, 27, 50, 2048))
+
+
+def _k3_check(fb, x, name: str) -> tuple[torch.Tensor, float, float]:
+    """K3 on x twice against its plain version: bitwise equal runs, within
+    2e-2 * max|plain|. Returns (output, max|err|, the bound)."""
+    from sgv3d_tpu_torch.ops.fused_bottleneck import (
+        fused_bottleneck, fused_bottleneck_plain)
+
+    out1 = fused_bottleneck(x, fb)
+    out2 = fused_bottleneck(x, fb)
+    ref = fused_bottleneck_plain(x, fb)
+    torch.cuda.synchronize()
+    if not torch.equal(out1, out2):
+        raise AssertionError(f"K3 {name} is not bitwise deterministic")
+    err = float((out1.float() - ref.float()).abs().max())
+    bound = 2e-2 * float(ref.float().abs().max())
+    if not err <= bound:
+        raise AssertionError(f"K3 {name} {tuple(x.shape)}: max|err| {err} > "
+                             f"{bound}")
+    return out1, err, bound
+
+
 def phase_k3(dev, smi) -> dict:
-    """K3 at each r50 stage's shape, batch 4: against its plain version
-    within 2e-2 * max|plain| (both round y1 and y2 to bf16, in another sum
-    order), bitwise equal across two runs; timed beside the plain version
+    """K3 at each r50 stage's shape, batch 4, and at ragged shapes: against
+    its plain version within 2e-2 * max|plain| (both round y1 and y2 to
+    bf16, in another sum order), bitwise equal across two runs, with large
+    positive BN biases; at the stage shapes timed beside the plain version
     and beside the unfused bf16 cuDNN block (BatchNorm unfolded) that it
-    replaces on the serving path."""
+    replaces on the serving path, with its bound."""
     from sgv3d_tpu_torch.ops.fused_bottleneck import (
         fused_bottleneck, fused_bottleneck_plain)
 
     entry = {"name": "fused_bottleneck", "route": "cuda",
              "source": "sgv3d_tpu_torch/csrc/fused_bottleneck.cu",
              "replaces": "sgv3d_tpu/ops/pallas_bottleneck.py:189",
-             "max_abs_err": 0.0, "stages": []}
+             "max_abs_err": 0.0, "launches_per_forward": 12,
+             "library_ms": None,
+             "library_note": "none: a bottleneck is several PyTorch calls; "
+                             "the unfused cuDNN block is cudnn_unfused_ms",
+             "stages": [], "ragged": []}
     g = torch.Generator(device=dev).manual_seed(3)
+    for b, h, w, c in K3_RAGGED:
+        _, fb = seeded_bottleneck(c, c // 4, seed=h + w, device=dev)
+        x = torch.randn(b, h, w, c, generator=g, device=dev).to(torch.bfloat16)
+        _, err, bound = _k3_check(fb, x, "ragged")
+        entry["ragged"].append({"shape": [b, h, w, c], "max_abs_err": err,
+                                "bound": bound})
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        print(f"[kernels] K3 fused_bottleneck ragged ({b}, {h}, {w}, {c}): "
+              f"max|err| {err:.3e} <= {bound:.3e}, bitwise deterministic")
     for stage, (p, h, w) in enumerate(R50_STAGES, start=1):
         c = 4 * p
         block, fb = seeded_bottleneck(c, p, seed=stage, device=dev)
         x = torch.randn(4, h, w, c, generator=g, device=dev).to(torch.bfloat16)
-        out1 = fused_bottleneck(x, fb)
-        out2 = fused_bottleneck(x, fb)
-        ref = fused_bottleneck_plain(x, fb)
-        torch.cuda.synchronize()
-        if not torch.equal(out1, out2):
-            raise AssertionError(f"K3 layer{stage} is not bitwise deterministic")
-        err = float((out1.float() - ref.float()).abs().max())
-        bound = 2e-2 * float(ref.float().abs().max())
-        if not err <= bound:
-            raise AssertionError(f"K3 layer{stage} (4, {h}, {w}, {c}): max|err| "
-                                 f"{err} > {bound}")
+        out1, err, bound = _k3_check(fb, x, f"layer{stage}")
         x_cl = x.permute(0, 3, 1, 2)          # channels_last NCHW, no copy
         block = block.to(memory_format=torch.channels_last)
 
@@ -330,6 +391,11 @@ def phase_k3(dev, smi) -> dict:
             with torch.autocast("cuda", dtype=torch.bfloat16):
                 return block(x_cl)
 
+        # 17 P^2 multiply-adds a pixel on the bf16 tensor cores; x in, the
+        # output and the folded weights once
+        bound_ms, bound_by = _bound((x, out1) + fb.tensors(),
+                                    2 * 17 * p * p * x.numel() // c,
+                                    PEAK_BF16_FLOPS)
         with torch.inference_mode():
             unfused = cudnn().permute(0, 2, 3, 1).float()
             unfused_ratio = float((out1.float() - unfused).abs().max()) / float(
@@ -339,23 +405,29 @@ def phase_k3(dev, smi) -> dict:
                    "vs_unfused_ratio": unfused_ratio,
                    "ms": _cuda_ms(lambda: fused_bottleneck(x, fb)),
                    "plain_ms": _cuda_ms(lambda: fused_bottleneck_plain(x, fb)),
-                   "cudnn_unfused_ms": _cuda_ms(cudnn)}
+                   "cudnn_unfused_ms": _cuda_ms(cudnn),
+                   "bound_ms": bound_ms, "bound_by": bound_by}
         entry["stages"].append(row)
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         print(f"[kernels] K3 fused_bottleneck layer{stage} (4, {h}, {w}, {c}) "
               f"P={p}: max|err| {err:.3e} <= {bound:.3e}, bitwise "
               f"deterministic, vs the unfused bf16 block {unfused_ratio:.3e} "
               f"of scale; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}"
-              f" ms, cuDNN unfused block {row['cudnn_unfused_ms']:.4f} ms ({smi})")
-        del x, out1, out2, ref, unfused
+              f" ms, cuDNN unfused block {row['cudnn_unfused_ms']:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}) ({smi})")
+        del x, out1, unfused
     # the top-level numbers: the sum over the twelve identity blocks of an
     # r50 forward at batch 4 (2, 3, 5, 2 blocks at the four stages)
     counts = (2, 3, 5, 2)
-    for key in ("ms", "plain_ms", "cudnn_unfused_ms"):
+    for key in ("ms", "plain_ms", "cudnn_unfused_ms", "bound_ms"):
         entry[key] = sum(n * r[key] for n, r in zip(counts, entry["stages"]))
+    entry["bound_by"] = "operations" if sum(
+        n * r["bound_ms"] for n, r in zip(counts, entry["stages"])
+        if r["bound_by"] == "operations") >= entry["bound_ms"] / 2 else "bytes"
     print(f"[kernels] K3 over the 12 identity blocks of an r50 forward: kernel "
           f"{entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms, cuDNN "
-          f"unfused {entry['cudnn_unfused_ms']:.3f} ms ({smi})")
+          f"unfused {entry['cudnn_unfused_ms']:.3f} ms, bound "
+          f"{entry['bound_ms']:.3f} ms ({smi})")
     return entry
 
 
@@ -368,21 +440,30 @@ def phase_k4(dev, smi) -> list[dict]:
     for _, fn in spike_gather.FORMULATIONS:
         fn.launches = 0
     rows = spike_gather.run(dev)
+    # the library yardstick and the bound on the probe's own inputs: ctx
+    # and idx read once, the gathered rows written once
+    ctx, idx = spike_gather.probe_inputs(dev)
+    library_ms = _cuda_ms(lambda: ctx[idx])
+    bound_ms, bound_by = _bound((ctx, idx, ctx[idx]), 0, PEAK_BF16_FLOPS)
     entries = []
     for (name, fn), row, line in zip(spike_gather.FORMULATIONS, rows, (28, 34, 41)):
         entries.append({"name": f"spike_gather.{name}", "route": "cuda",
                         "source": "sgv3d_tpu_torch/csrc/spike_gather.cu",
                         "replaces": f"tools/spike_pallas_gather.py:{line}",
-                        "launches": fn.launches, "max_abs_err": 0.0,
-                        "ms": row["ms"], "plain_ms": row["plain_ms"],
+                        "launches": fn.launches, "launches_per_forward": 0,
+                        "max_abs_err": 0.0, "ms": row["ms"],
+                        "plain_ms": row["plain_ms"], "library_ms": library_ms,
+                        "library_note": "ctx[idx]", "bound_ms": bound_ms,
+                        "bound_by": bound_by,
                         "shape": [spike_gather.N_CHUNKS, spike_gather.M,
                                   spike_gather.C]})
         if not fn.launches:
             raise AssertionError(f"K4 {name} was not launched")
         print(f"[kernels] K4 spike_gather {name} ({spike_gather.N_CHUNKS}, "
               f"{spike_gather.M}) rows of ({spike_gather.HW}, {spike_gather.C}):"
-              f" exact; kernel {row['ms']:.4f} ms, plain ctx[idx] "
-              f"{row['plain_ms']:.4f} ms ({smi})")
+              f" exact; kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, ctx[idx] {library_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}) ({smi})")
     return entries
 
 

@@ -9,36 +9,58 @@
 // with C = 4P, fp32 accumulation, and conv2's zero padding in y1-space: y1
 // is exactly zero outside the image (relu(0 . w1 + b1) = relu(b1) is not).
 //
-// What bounds it on an H100: the three products are ~C*P + 9*P*P + P*C
-// multiply-adds a pixel (69.6K at P = 64 up to 4.5M at P = 512), done here
-// with mma.sync on bf16 tensor cores; the weights (up to 8.7 MB a block at
-// P = 512) stay in L2 and are read by every thread block, so at the deep
-// stages the kernel is bound by L2 bandwidth for the weight fragments; at
-// the first stage by the activations' traffic. Unfused, each block moves
-// the activation through device memory about five times; fused, x is read
-// once (its halo rows twice) and the output written once.
+// What bounds it on an H100: 17 P^2 multiply-adds an output pixel (46 GFLOP
+// a block at every r50 stage at batch 4) against x read once and the output
+// written once; at the first two stages the bytes and the FLOPs bound it
+// about equally (~0.1 ms), at the last two the FLOPs (~0.05 ms). What held
+// the first version back was every warp fetching its own weight fragments
+// from L2 (up to 22 MB a block at P = 512) and loads that never overlapped
+// the math.
 //
-// Design: a thread block owns a TH x TW output tile of one image (8x16 at
-// P <= 64, else 8x8) and runs three phases with shared memory between them:
-//   1. y1 on the (TH+2) x (TW+2) halo tile: x is staged into shared memory
-//      64 input channels at a time (16-byte loads, zero outside the image),
-//      each warp takes 32x32 output jobs, and the epilogue writes
-//      relu(acc + b1) as bf16, or exactly 0 for a halo pixel outside the
-//      image: the padding predicate replaces the TPU kernel's H-padded
-//      layout and its edge-row masking;
+// Design: a thread block owns a TH x TW output tile of one image and runs
+// three phases, each a sequence of products whose K is cut into 64-channel
+// chunks. One producer thread walks the same sequence of chunks as the
+// eight consumer warps and keeps a ring of 2 to 4 shared-memory stages
+// full with asynchronous copies, each completing on the stage's "full"
+// mbarrier; the consumers release a stage on its "empty" mbarrier, after a
+// proxy fence that orders their ldmatrix reads before the stage's next
+// (async-proxy) fill. A stage holds one NB x 64 tile of the folded
+// weights, one cp.async.bulk copy: `fold_bottleneck` stores the weights in
+// the order the ring consumes them (output-channel tile, then K chunk),
+// each tile already in its shared-memory layout, rows of 64 bf16 (128
+// bytes) with the 16-byte group g of row n at g ^ (n & 7), so the ldmatrix
+// loads of 8 rows hit 32 banks. Every weight byte crosses from L2 to the SM
+// once a block per phase, shared by all eight warps. In phase 1 a stage
+// also holds the 64-channel chunk of x on the (TH+2) x (TW+2) halo tile,
+// one TMA load of a 4-D box (tensor map over x as (C, W, H, batch)) with
+// the same 128-byte swizzle; TMA fills the halo pixels outside the image
+// with 0. Each block starts its walk over the output-channel tiles and K
+// chunks at its own offset (its sums keep a fixed order).
+//   1. y1 on the halo tile, for each NB-column tile of P: the epilogue
+//      writes relu(acc + b1) as bf16, or exactly 0 for a halo pixel outside
+//      the image (the padding predicate replaces the TPU kernel's H-padded
+//      layout and its edge-row masking);
 //   2. y2 as nine shifted products: the A rows of tap (dy, dx) are the halo
-//      pixels at the output pixel's offset, so the shift is pointer
-//      arithmetic and the W border needs no zero columns;
+//      pixels at the output pixel's offset, so the shift is in the ldmatrix
+//      row addresses and the W border needs no zero columns;
 //   3. out = relu(y2 . w3 + b3 + x), the residual read from device memory
 //      in the epilogue, stored bf16; rows outside the image are not stored.
-// Activations are NHWC bf16 (a channels_last NCHW tensor already is), so
-// no transpose and no padded copy. Weights are output-channel major with
-// the input channels contiguous, so a B fragment of m16n8k16 is two 32-bit
-// loads. Every output is written once by one thread, with no atomics: the
-// result is bitwise the same on every run. Shared rows are padded by 8
-// elements, so the fragment loads of 8 rows hit 32 distinct banks.
-// wgmma, TMA and a pipelined ring are later work.
+// Warps compute with mma.sync m16n8k16 (bf16 in, fp32 accumulators), A and
+// B fragments by ldmatrix from shared memory; wgmma is later work.
+//
+// Tile per P (output pixels TH x TW, halo rows padded to M1 for the phase-1
+// warp tiling; shared memory from `smem_bytes` in ops/fused_bottleneck.py):
+//   P =  64: 8 x 16, NB  64, 2 stages (92,000 bytes: two blocks an SM);
+//   P = 128: 8 x 16, NB 128, 4 stages;  P = 256: 8 x 16, NB 128, 3 stages;
+//   P = 512: 8 x 8,  NB 128, 3 stages (a 16-wide tile's y1 halo alone is
+//   187 KB). The 8 x 16 tile halves the halo's share of phase 1 against
+//   8 x 8; at P = 512 only 8 x 8 leaves room for three weight stages.
+// Activations are NHWC bf16 (a channels_last NCHW tensor already is), so no
+// transpose and no padded copy. Every output is written once by one thread,
+// with no atomics: the result is bitwise the same on every run.
 
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder is fetched
+                   // from the driver at run time, so no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,31 +69,133 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kMT = 2;            // 16-row tiles of a warp job
-constexpr int kNT = 4;            // 8-column tiles of a warp job
-constexpr int kJobM = 16 * kMT;   // 32 rows
-constexpr int kJobN = 8 * kNT;    // 32 columns
-constexpr int kChunk = 64;        // input channels of x staged at a time
-constexpr int kPad = 8;           // bf16 elements of padding a shared row
-constexpr int kXStride = kChunk + kPad;
+constexpr int kConsumerWarps = 8;
+constexpr int kThreads = (kConsumerWarps + 1) * 32;  // + one producer warp
+constexpr int kKC = 64;                 // K elements of a ring stage
+constexpr int kRow = kKC * 2;           // bytes of a stage row (128)
+
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+template <int P_, int TH_, int TW_, int STAGES_>
+struct Cfg {
+  static constexpr int P = P_, C = 4 * P_, TH = TH_, TW = TW_;
+  static constexpr int STAGES = STAGES_;
+  static constexpr int MIN_BLOCKS = P == 64 ? 2 : 1;  // blocks an SM
+  static constexpr int HALO_W = TW + 2;
+  static constexpr int HALO = (TH + 2) * HALO_W;
+  static constexpr int M1 = (HALO + 63) / 64 * 64;  // phase-1 rows
+  static constexpr int M2 = TH * TW;                // phase-2/3 rows
+  static constexpr int NB = P < 128 ? P : 128;      // columns of a pass
+  static constexpr int YS = P + 8;                  // row stride of y1, y2
+  static constexpr int Y1_BYTES = HALO * YS * 2;
+  // x stages hold the halo rows, 128-byte swizzled by TMA, each starting
+  // on a 1024-byte boundary; the area also covers the phase-1 reads of the
+  // last stage's padding rows (M1 - HALO), whose products are dropped
+  static constexpr int XSTAGE_BYTES = (HALO * kRow + 1023) / 1024 * 1024;
+  static constexpr int AREA_BYTES =
+      cmax(STAGES * XSTAGE_BYTES + (M1 - HALO) * kRow, M2 * YS * 2);
+  static constexpr int WSTAGE_BYTES = NB * kRow;
+  // + 1024 bytes to align the area's start
+  static constexpr int SMEM = 1024 + AREA_BYTES + Y1_BYTES +
+                              STAGES * WSTAGE_BYTES + 2 * STAGES * 8;
+  // warp tiles: phase 1 4 (M) x 2 (N) warps; phases 2, 3 4 x 2 at 128 rows,
+  // 2 x 4 at 64 rows; MT m16 tiles by NT n8 tiles a warp
+  static constexpr int MT1 = M1 / 64;
+  static constexpr int NT1 = NB / 16;
+  static constexpr int WM23 = M2 == 128 ? 4 : 2;
+  static constexpr int MT23 = M2 / (16 * WM23);
+  static constexpr int NT23 = NB / (8 * (kConsumerWarps / WM23));
+  static constexpr int KCH1 = C / kKC;       // K chunks of phase 1
+  static constexpr int KCH2 = 9 * P / kKC;   // of phase 2 (tap-major)
+  static constexpr int KCH3 = P / kKC;       // of phase 3
+  static_assert(P % kKC == 0 && M2 % (16 * WM23) == 0, "tile");
+  static_assert(NT1 % 2 == 0 && NT23 % 2 == 0 && MT23 >= 1, "warp tile");
+  static_assert(Y1_BYTES % 16 == 0 && AREA_BYTES % 16 == 0, "alignment");
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+// ---- PTX wrappers ---------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA load of the box at (c0, c1, c2, c3) of tensor map `map` into shared
+// memory, completing on mbarrier `bar`; elements outside the tensor are 0.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                           int c0, int c1, int c2, int c3,
+                                           uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(bar)
+      : "memory");
+}
+
+// Bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned) from
+// device memory into shared memory, completing on mbarrier `bar`.
+__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src,
+                                         uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumerWarps * 32) : "memory");
+}
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
+                                         uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld_shared32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ld_global32(const bf16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -79,232 +203,303 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// One k16 step of a warp's 32x32 job: A rows from shared memory (rows g and
-// g + 8 of each 16-row tile, as pointers), B rows (output channels
-// n0 + 8j + g) from device memory. Fragment layout of m16n8k16: lane
-// (g = lane / 4, t = lane % 4) holds A[g|g+8][2t, 2t+1 | 2t+8, 2t+9] and
-// B[2t, 2t+1 | 2t+8, 2t+9][g].
-__device__ __forceinline__ void mma_step(float (&acc)[kMT][kNT][4],
-                                         const bf16* const (&arow)[kMT][2],
-                                         int ak, const bf16* const (&brow)[kNT],
-                                         int bk, int t) {
-  uint32_t a[kMT][4];
-  uint32_t b[kNT][2];
-#pragma unroll
-  for (int i = 0; i < kMT; ++i) {
-    a[i][0] = ld_shared32(arow[i][0] + ak + 2 * t);
-    a[i][1] = ld_shared32(arow[i][1] + ak + 2 * t);
-    a[i][2] = ld_shared32(arow[i][0] + ak + 2 * t + 8);
-    a[i][3] = ld_shared32(arow[i][1] + ak + 2 * t + 8);
+// The ring's position, advanced the same way by the producer and consumers.
+template <int STAGES>
+struct Ring {
+  int slot = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void advance() {
+    if (++slot == STAGES) {
+      slot = 0;
+      phase ^= 1;
+    }
   }
-#pragma unroll
-  for (int j = 0; j < kNT; ++j) {
-    b[j][0] = ld_global32(brow[j] + bk + 2 * t);
-    b[j][1] = ld_global32(brow[j] + bk + 2 * t + 8);
-  }
-#pragma unroll
-  for (int i = 0; i < kMT; ++i)
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) mma_bf16(acc[i][j], a[i], b[j]);
-}
+};
 
-__device__ __forceinline__ void zero(float (&acc)[kMT][kNT][4]) {
+template <int MT, int NT>
+__device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
 #pragma unroll
-  for (int i = 0; i < kMT; ++i)
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int j = 0; j < kNT; ++j)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// One ring stage's 64-deep product of a warp's MT x NT tile. a_addr[i]: this
+// lane's ldmatrix row address (shared) of m16 tile i at the chunk's k = 0,
+// in a 128-byte swizzled stage row (A_SWIZZLED) or a padded row, where it
+// includes the lane's k half;
+// w: the stage's weight tile; b_row[j2]: byte offset of this lane's weight
+// row for the n16 pair j2. ldmatrix x4 lane roles: lanes 8q..8q+7 address
+// the rows of matrix q; for A, q = (k half) * 2 + (row half), for B,
+// q = (n half) * 2 + (k half).
+template <bool A_SWIZZLED, int MT, int NT>
+__device__ __forceinline__ void stage_product(float (&acc)[MT][NT][4],
+                                              const uint32_t (&a_addr)[MT],
+                                              uint32_t w,
+                                              const uint32_t (&b_row)[NT / 2],
+                                              int lane) {
+#pragma unroll
+  for (int kk = 0; kk < kKC / 16; ++kk) {
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+      ldsm_x4(a[i], a_addr[i] + (A_SWIZZLED
+                                     ? ((2 * kk + (lane >> 4)) ^ (lane & 7)) << 4
+                                     : kk * 32));
+    const uint32_t swz = ((2 * kk + ((lane >> 3) & 1)) ^ (lane & 7)) << 4;
+#pragma unroll
+    for (int j2 = 0; j2 < NT / 2; ++j2) {
+      uint32_t b[4];
+      ldsm_x4(b, w + b_row[j2] + swz);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        mma_bf16(acc[i][2 * j2], a[i], b[0], b[1]);
+        mma_bf16(acc[i][2 * j2 + 1], a[i], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// Consume one ring stage: wait for it to fill, multiply, release it.
+template <bool A_SWIZZLED, int MT, int NT, int STAGES>
+__device__ __forceinline__ void consume(float (&acc)[MT][NT][4],
+                                        const uint32_t (&a_addr)[MT],
+                                        const uint32_t (&b_row)[NT / 2],
+                                        Ring<STAGES>& ring, uint32_t full0,
+                                        uint32_t empty0, uint32_t w, int lane) {
+  mbar_wait(full0 + 8 * ring.slot, ring.phase);
+  stage_product<A_SWIZZLED>(acc, a_addr, w, b_row, lane);
+  // the stage's next fill is an async-proxy write: order this thread's
+  // ldmatrix reads before it (without the fence, a refill raced them)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty0 + 8 * ring.slot);
+  ring.advance();
+}
+
+template <int NT>
+__device__ __forceinline__ void weight_rows(uint32_t (&b_row)[NT / 2], int n0,
+                                            int lane) {
+#pragma unroll
+  for (int j2 = 0; j2 < NT / 2; ++j2)
+    b_row[j2] = (n0 + 16 * j2 + ((lane >> 4) << 3) + (lane & 7)) * (kKC * 2);
+}
+
+template <class K>
+__global__ void __launch_bounds__(kThreads, K::MIN_BLOCKS)
 fused_bottleneck_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                         const float* __restrict__ b1,
                         const bf16* __restrict__ w2,
                         const float* __restrict__ b2,
                         const bf16* __restrict__ w3,
                         const float* __restrict__ b3, bf16* __restrict__ out,
-                        int h, int w, int p, int th, int tw, int tiles_x,
-                        int tiles_y) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int c = 4 * p;
-  const int halo_w = tw + 2;
-  const int halo = (th + 2) * halo_w;
-  const int halo_rows = (halo + kJobM - 1) / kJobM * kJobM;
-  const int m2 = th * tw;                 // a multiple of kJobM
-  const int ys = p + kPad;                // row stride of y1 and y2
-  bf16* y1s = reinterpret_cast<bf16*>(smem);
-  bf16* buf = y1s + halo_rows * ys;       // x chunk in phase 1, y2 after
+                        const __grid_constant__ CUtensorMap xmap, int h, int w,
+                        int tiles_x, int tiles_y) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  // x stages in phase 1, y2 after
+  unsigned char* area = smem + ((1024 - (smem_u32(smem) & 1023)) & 1023);
+  bf16* y2s = reinterpret_cast<bf16*>(area);
+  bf16* y1s = reinterpret_cast<bf16*>(area + K::AREA_BYTES);
+  unsigned char* wring = area + K::AREA_BYTES + K::Y1_BYTES;
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(wring + K::STAGES * K::WSTAGE_BYTES);
+  const uint32_t full0 = smem_u32(bars);              // full[s] = full0 + 8s
+  const uint32_t empty0 = smem_u32(bars + K::STAGES);  // empty[s]
 
   int tile = blockIdx.x;
   const int tx = tile % tiles_x;
   tile /= tiles_x;
   const int ty = tile % tiles_y;
   const int img = tile / tiles_y;
-  const int oy0 = ty * th;
-  const int ox0 = tx * tw;
-  const bf16* ximg = x + static_cast<size_t>(img) * h * w * c;
-  bf16* oimg = out + static_cast<size_t>(img) * h * w * c;
+  const int oy0 = ty * K::TH;
+  const int ox0 = tx * K::TW;
+  const bf16* ximg = x + static_cast<size_t>(img) * h * w * K::C;
+  bf16* oimg = out + static_cast<size_t>(img) * h * w * K::C;
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  // Every block walks its output-channel tiles and K chunks starting at
+  // its own offset, so that the blocks in flight read different weight
+  // tiles from L2 at a time; each block's order, and so its sums, are fixed.
+  const int rot = static_cast<int>(blockIdx.x);
+  auto halo_inside = [&](int row) {
+    const int iy = oy0 - 1 + row / K::HALO_W;
+    const int ix = ox0 - 1 + row % K::HALO_W;
+    return row < K::HALO && iy >= 0 && iy < h && ix >= 0 && ix < w;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < K::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {
+    // ---- producer: the chunks of all three phases, in consumption order --
+    if (lane != 0) return;
+    Ring<K::STAGES> ring;
+    const bf16* srcs[3] = {w1, w2, w3};
+    const int tiles[3] = {K::P / K::NB, K::P / K::NB, K::C / K::NB};
+    const int chunks[3] = {K::KCH1, K::KCH2, K::KCH3};
+    for (int ph = 0; ph < 3; ++ph) {
+      for (int st = 0; st < tiles[ph] * chunks[ph]; ++st) {
+        const int q = (st % chunks[ph] + rot) % chunks[ph];
+        const int tile_nk = (st / chunks[ph] + rot) % tiles[ph] * chunks[ph] + q;
+        mbar_wait(empty0 + 8 * ring.slot, ring.phase ^ 1);
+        const uint32_t full = full0 + 8 * ring.slot;
+        mbar_arrive_expect_tx(full, K::WSTAGE_BYTES + (ph == 0 ? K::HALO * kRow : 0));
+        bulk_g2s(smem_u32(wring + ring.slot * K::WSTAGE_BYTES),
+                 srcs[ph] + static_cast<size_t>(tile_nk) * K::NB * kKC,
+                 K::WSTAGE_BYTES, full);
+        if (ph == 0)   // the halo box of chunk q; 0 outside the image
+          tma_load_4d(smem_u32(area + ring.slot * K::XSTAGE_BYTES), &xmap,
+                      q * kKC, ox0 - 1, oy0 - 1, img, full);
+        ring.advance();
+      }
+    }
+    return;
+  }
+
+  // ---- consumers ------------------------------------------------------------
   const int g = lane >> 2;
   const int t = lane & 3;
-  float acc[kMT][kNT][4];
+  // this lane's ldmatrix A row within an m16 tile, and its k half (bytes)
+  const int a_r = ((lane >> 3) & 1) * 8 + (lane & 7);
+  const int a_k = (lane >> 4) * 16;
+  const uint32_t wring_u = smem_u32(wring);
+  Ring<K::STAGES> ring;
 
-  // ---- phase 1: y1 on the halo tile -------------------------------------
+  // ---- phase 1: y1 on the halo tile ----------------------------------------
   {
-    const int jobs_n = p / kJobN;
-    const int jobs = halo_rows / kJobM * jobs_n;
-    const int rounds = (jobs + kWarps - 1) / kWarps;
-    for (int r = 0; r < rounds; ++r) {
-      const int job = r * kWarps + warp;
-      const bool active = job < jobs;
-      const int m0 = active ? job / jobs_n * kJobM : 0;
-      const int n0 = active ? job % jobs_n * kJobN : 0;
-      const bf16* arow[kMT][2];
-      const bf16* brow[kNT];
-#pragma unroll
-      for (int i = 0; i < kMT; ++i) {
-        arow[i][0] = buf + (m0 + 16 * i + g) * kXStride;
-        arow[i][1] = arow[i][0] + 8 * kXStride;
-      }
-#pragma unroll
-      for (int j = 0; j < kNT; ++j)
-        brow[j] = w1 + static_cast<size_t>(n0 + 8 * j + g) * c;
+    constexpr int MT = K::MT1, NT = K::NT1;
+    const int m0 = (warp >> 1) * 16 * MT;
+    const int nw = (warp & 1) * 8 * NT;
+    uint32_t b_row[NT / 2];
+    weight_rows<NT>(b_row, nw, lane);
+    float acc[MT][NT][4];
+    for (int nt = 0; nt < K::P / K::NB; ++nt) {
+      const int ntr = (nt + rot) % (K::P / K::NB);
       zero(acc);
-      for (int k0 = 0; k0 < c; k0 += kChunk) {
-        __syncthreads();  // every warp is done with the previous chunk
-        constexpr int kVecs = kChunk / 8;  // 16-byte vectors a row
-        for (int v = threadIdx.x; v < halo_rows * kVecs; v += kThreads) {
-          const int row = v / kVecs;
-          const int part = v - row * kVecs;
-          uint4 val = make_uint4(0u, 0u, 0u, 0u);
-          if (row < halo) {
-            const int iy = oy0 - 1 + row / halo_w;
-            const int ix = ox0 - 1 + row % halo_w;
-            if (iy >= 0 && iy < h && ix >= 0 && ix < w)
-              val = __ldg(reinterpret_cast<const uint4*>(
-                            ximg + (static_cast<size_t>(iy) * w + ix) * c + k0) +
-                        part);
-          }
-          reinterpret_cast<uint4*>(buf + row * kXStride)[part] = val;
-        }
-        __syncthreads();
-        if (active) {
+      for (int kc = 0; kc < K::KCH1; ++kc) {
+        uint32_t a_addr[MT];
+        const uint32_t xs = smem_u32(area + ring.slot * K::XSTAGE_BYTES);
 #pragma unroll
-          for (int kk = 0; kk < kChunk; kk += 16)
-            mma_step(acc, arow, kk, brow, k0 + kk, t);
-        }
+        for (int i = 0; i < MT; ++i)
+          a_addr[i] = xs + (m0 + 16 * i + a_r) * kRow;
+        consume<true>(acc, a_addr, b_row, ring, full0, empty0,
+                wring_u + ring.slot * K::WSTAGE_BYTES, lane);
       }
-      if (active) {
 #pragma unroll
-        for (int i = 0; i < kMT; ++i)
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int row = m0 + 16 * i + g + 8 * half;
-            bool inside = false;
-            if (row < halo) {
-              const int iy = oy0 - 1 + row / halo_w;
-              const int ix = ox0 - 1 + row % halo_w;
-              inside = iy >= 0 && iy < h && ix >= 0 && ix < w;
-            }
-#pragma unroll
-            for (int j = 0; j < kNT; ++j) {
-              const int n = n0 + 8 * j + 2 * t;
-              const float v0 = inside ? fmaxf(acc[i][j][2 * half] + b1[n], 0.f) : 0.f;
-              const float v1 =
-                  inside ? fmaxf(acc[i][j][2 * half + 1] + b1[n + 1], 0.f) : 0.f;
-              *reinterpret_cast<uint32_t*>(y1s + row * ys + n) = pack_bf16(v0, v1);
-            }
-          }
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- phase 2: y2 = relu(conv3x3(y1) + b2), nine shifted products -------
-  {
-    const int jobs_n = p / kJobN;
-    const int jobs = m2 / kJobM * jobs_n;
-    for (int job = warp; job < jobs; job += kWarps) {
-      const int m0 = job / jobs_n * kJobM;
-      const int n0 = job % jobs_n * kJobN;
-      int base[kMT][2];  // halo index of the tap (0, 0) of each lane's rows
-#pragma unroll
-      for (int i = 0; i < kMT; ++i)
+      for (int i = 0; i < MT; ++i)
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int row = m0 + 16 * i + g + 8 * half;
-          base[i][half] = row / tw * halo_w + row % tw;
-        }
-      zero(acc);
-      for (int tap = 0; tap < 9; ++tap) {
-        const int shift = tap / 3 * halo_w + tap % 3;
-        const bf16* arow[kMT][2];
-        const bf16* brow[kNT];
+          if (row >= K::HALO) continue;
+          const bool inside = halo_inside(row);
 #pragma unroll
-        for (int i = 0; i < kMT; ++i) {
-          arow[i][0] = y1s + (base[i][0] + shift) * ys;
-          arow[i][1] = y1s + (base[i][1] + shift) * ys;
-        }
-#pragma unroll
-        for (int j = 0; j < kNT; ++j)
-          brow[j] = w2 + static_cast<size_t>(n0 + 8 * j + g) * 9 * p + tap * p;
-        for (int k0 = 0; k0 < p; k0 += 16) mma_step(acc, arow, k0, brow, k0, t);
-      }
-#pragma unroll
-      for (int i = 0; i < kMT; ++i)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int row = m0 + 16 * i + g + 8 * half;
-#pragma unroll
-          for (int j = 0; j < kNT; ++j) {
-            const int n = n0 + 8 * j + 2 * t;
-            *reinterpret_cast<uint32_t*>(buf + row * ys + n) =
-                pack_bf16(fmaxf(acc[i][j][2 * half] + b2[n], 0.f),
-                          fmaxf(acc[i][j][2 * half + 1] + b2[n + 1], 0.f));
+          for (int j = 0; j < NT; ++j) {
+            const int n = ntr * K::NB + nw + 8 * j + 2 * t;
+            const float v0 =
+                inside ? fmaxf(acc[i][j][2 * half] + __ldg(b1 + n), 0.f) : 0.f;
+            const float v1 =
+                inside ? fmaxf(acc[i][j][2 * half + 1] + __ldg(b1 + n + 1), 0.f)
+                       : 0.f;
+            *reinterpret_cast<uint32_t*>(y1s + row * K::YS + n) =
+                pack_bf16(v0, v1);
           }
         }
     }
   }
-  __syncthreads();
+  consumer_sync();  // y1 complete; every x stage consumed
 
-  // ---- phase 3: out = relu(y2 . w3 + b3 + x) -----------------------------
+  constexpr int MT = K::MT23, NT = K::NT23;
+  const int m0 = (warp / (kConsumerWarps / K::WM23)) * 16 * MT;
+  const int nw = (warp % (kConsumerWarps / K::WM23)) * 8 * NT;
+  uint32_t b_row[NT / 2];
+  weight_rows<NT>(b_row, nw, lane);
+  float acc[MT][NT][4];
+
+  // ---- phase 2: y2 = relu(conv3x3(y1) + b2), nine shifted products ---------
   {
-    const int jobs_n = c / kJobN;
-    const int jobs = m2 / kJobM * jobs_n;
-    for (int job = warp; job < jobs; job += kWarps) {
-      const int m0 = job / jobs_n * kJobM;
-      const int n0 = job % jobs_n * kJobN;
-      const bf16* arow[kMT][2];
-      const bf16* brow[kNT];
+    uint32_t base[MT];  // address of this lane's tap-(0, 0) halo row
 #pragma unroll
-      for (int i = 0; i < kMT; ++i) {
-        arow[i][0] = buf + (m0 + 16 * i + g) * ys;
-        arow[i][1] = arow[i][0] + 8 * ys;
+    for (int i = 0; i < MT; ++i) {
+      const int row = m0 + 16 * i + a_r;
+      base[i] = smem_u32(y1s) +
+                ((row / K::TW) * K::HALO_W + row % K::TW) * K::YS * 2 + a_k;
+    }
+    for (int nt = 0; nt < K::P / K::NB; ++nt) {
+      const int ntr = (nt + rot) % (K::P / K::NB);
+      zero(acc);
+      for (int q = 0; q < K::KCH2; ++q) {
+        const int qr = (q + rot) % K::KCH2;     // tap-major K chunk
+        const int tap = qr / (K::P / kKC);
+        const int shift = (tap / 3) * K::HALO_W + tap % 3;
+        uint32_t a_addr[MT];
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          a_addr[i] = base[i] + (shift * K::YS + qr % (K::P / kKC) * kKC) * 2;
+        consume<false>(acc, a_addr, b_row, ring, full0, empty0,
+                wring_u + ring.slot * K::WSTAGE_BYTES, lane);
       }
 #pragma unroll
-      for (int j = 0; j < kNT; ++j)
-        brow[j] = w3 + static_cast<size_t>(n0 + 8 * j + g) * p;
-      zero(acc);
-      for (int k0 = 0; k0 < p; k0 += 16) mma_step(acc, arow, k0, brow, k0, t);
-#pragma unroll
-      for (int i = 0; i < kMT; ++i)
+      for (int i = 0; i < MT; ++i)
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int row = m0 + 16 * i + g + 8 * half;
-          const int oy = oy0 + row / tw;
-          const int ox = ox0 + row % tw;
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const int n = ntr * K::NB + nw + 8 * j + 2 * t;
+            *reinterpret_cast<uint32_t*>(y2s + row * K::YS + n) =
+                pack_bf16(fmaxf(acc[i][j][2 * half] + __ldg(b2 + n), 0.f),
+                          fmaxf(acc[i][j][2 * half + 1] + __ldg(b2 + n + 1), 0.f));
+          }
+        }
+    }
+  }
+  consumer_sync();  // y2 complete
+
+  // ---- phase 3: out = relu(y2 . w3 + b3 + x) --------------------------------
+  {
+    uint32_t a_base[MT];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+      a_base[i] = smem_u32(y2s) + (m0 + 16 * i + a_r) * K::YS * 2 + a_k;
+    for (int nt = 0; nt < K::C / K::NB; ++nt) {
+      const int ntr = (nt + rot) % (K::C / K::NB);
+      zero(acc);
+      for (int kc = 0; kc < K::KCH3; ++kc) {
+        uint32_t a_addr[MT];
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          a_addr[i] = a_base[i] + (kc + rot) % K::KCH3 * kKC * 2;
+        consume<false>(acc, a_addr, b_row, ring, full0, empty0,
+                wring_u + ring.slot * K::WSTAGE_BYTES, lane);
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = m0 + 16 * i + g + 8 * half;
+          const int oy = oy0 + row / K::TW;
+          const int ox = ox0 + row % K::TW;
           if (oy >= h || ox >= w) continue;
-          const size_t pix = (static_cast<size_t>(oy) * w + ox) * c;
+          const size_t pix = (static_cast<size_t>(oy) * w + ox) * K::C;
 #pragma unroll
-          for (int j = 0; j < kNT; ++j) {
-            const int n = n0 + 8 * j + 2 * t;
-            const uint32_t rv = ld_global32(ximg + pix + n);
-            const __nv_bfloat162 res = *reinterpret_cast<const __nv_bfloat162*>(&rv);
-            const float v0 = acc[i][j][2 * half] + b3[n] + __low2float(res);
-            const float v1 = acc[i][j][2 * half + 1] + b3[n + 1] + __high2float(res);
+          for (int j = 0; j < NT; ++j) {
+            const int n = ntr * K::NB + nw + 8 * j + 2 * t;
+            const unsigned int rv =
+                __ldg(reinterpret_cast<const unsigned int*>(ximg + pix + n));
+            const __nv_bfloat162 res =
+                *reinterpret_cast<const __nv_bfloat162*>(&rv);
+            const float v0 = acc[i][j][2 * half] + __ldg(b3 + n) + __low2float(res);
+            const float v1 =
+                acc[i][j][2 * half + 1] + __ldg(b3 + n + 1) + __high2float(res);
             *reinterpret_cast<uint32_t*>(oimg + pix + n) =
                 pack_bf16(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
           }
@@ -313,12 +508,76 @@ fused_bottleneck_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   }
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, looked up once.
+EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &status);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &status);
+#endif
+    return status == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+template <class K>
+int launch(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
+           const float* b2, const bf16* w3, const float* b3, bf16* out,
+           int batch, int h, int w, int th, int tw, int smem,
+           cudaStream_t stream) {
+  if (th != K::TH || tw != K::TW || smem != K::SMEM)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_bottleneck_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles_x = (w + tw - 1) / tw;
+  const int tiles_y = (h + th - 1) / th;
+  const unsigned blocks = static_cast<unsigned>(batch) * tiles_x * tiles_y;
+  // x as a 4-D tensor (C, W, H, batch), innermost first; the box is one
+  // 64-channel chunk of a (TH + 2) x (TW + 2) halo tile
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap xmap;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(K::C),
+                              static_cast<cuuint64_t>(w),
+                              static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {dims[0] * 2, dims[0] * dims[1] * 2,
+                                 dims[0] * dims[1] * dims[2] * 2};
+  const cuuint32_t box[4] = {kKC, K::TW + 2, K::TH + 2, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(x),
+             dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  fused_bottleneck_kernel<K><<<blocks, kThreads, smem, stream>>>(
+      x, w1, b1, w2, b2, w3, b3, out, xmap, h, w, tiles_x, tiles_y);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x, out: (batch, h, w, 4p) bf16 NHWC, 16-byte aligned; w1 (p, 4p), w2
-// (p, 9p) taps (dy, dx) row-major then input channel, w3 (4p, p), bf16;
-// b1, b2 (p,), b3 (4p,) fp32. p % 32 == 0, th * tw % 32 == 0, `smem` the
-// bytes of shared memory the caller computed for (p, th, tw).
+// (p, 9p), w3 (4p, p) bf16 in the ring's order (`pack_weight` in
+// ops/fused_bottleneck.py), 16-byte aligned; b1, b2 (p,), b3 (4p,) fp32.
+// p in {64, 128, 256, 512}; (th, tw) and `smem` as `tile_shape` and
+// `smem_bytes` give them, checked against the kernel's own.
 extern "C" int fused_bottleneck_launch(const bf16* x, const bf16* w1,
                                        const float* b1, const bf16* w2,
                                        const float* b2, const bf16* w3,
@@ -326,15 +585,20 @@ extern "C" int fused_bottleneck_launch(const bf16* x, const bf16* w1,
                                        int h, int w, int p, int th, int tw,
                                        int smem, cudaStream_t stream) {
   if (batch == 0 || h == 0 || w == 0) return static_cast<int>(cudaGetLastError());
-  if (p % kJobN != 0 || (th * tw) % kJobM != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_bottleneck_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles_x = (w + tw - 1) / tw;
-  const int tiles_y = (h + th - 1) / th;
-  const unsigned blocks = static_cast<unsigned>(batch) * tiles_x * tiles_y;
-  fused_bottleneck_kernel<<<blocks, kThreads, smem, stream>>>(
-      x, w1, b1, w2, b2, w3, b3, out, h, w, p, th, tw, tiles_x, tiles_y);
-  return static_cast<int>(cudaGetLastError());
+  switch (p) {
+    case 64:
+      return launch<Cfg<64, 8, 16, 2>>(x, w1, b1, w2, b2, w3, b3, out, batch, h,
+                                    w, th, tw, smem, stream);
+    case 128:
+      return launch<Cfg<128, 8, 16, 4>>(x, w1, b1, w2, b2, w3, b3, out, batch, h,
+                                     w, th, tw, smem, stream);
+    case 256:
+      return launch<Cfg<256, 8, 16, 3>>(x, w1, b1, w2, b2, w3, b3, out, batch, h,
+                                     w, th, tw, smem, stream);
+    case 512:
+      return launch<Cfg<512, 8, 8, 3>>(x, w1, b1, w2, b2, w3, b3, out, batch, h,
+                                    w, th, tw, smem, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

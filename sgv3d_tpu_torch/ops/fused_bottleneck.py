@@ -25,15 +25,62 @@ import torch.nn.functional as F
 from sgv3d_tpu_torch.ops import cuda_lib
 
 SMEM_LIMIT = 232448     # bytes of shared memory a block may use on sm_90
+KERNEL_P = (64, 128, 256, 512)   # the widths the kernel is built for
+RING_K = 64             # K elements of a ring stage
+
+
+def ring_stages(p: int) -> int:
+    """Stages of the kernel's ring at width P: as many as shared memory
+    holds beside y1 and y2, and at P = 64 few enough for two blocks an SM."""
+    return {64: 2, 128: 4}.get(p, 3)
+
+
+def ring_tile(p: int) -> tuple[int, int]:
+    """(NB, KC) of the weight ring at width P: a stage holds NB output
+    channels by KC input channels (NB = min(P, 128), KC = min(P, 64), so
+    any power-of-two P >= 8 packs; the kernel runs P >= 64)."""
+    return min(p, 128), min(p, RING_K)
+
+
+def _swizzled(t: torch.Tensor) -> torch.Tensor:
+    """(..., nb, g, 8) -> the same with group j of row n taken from group
+    j ^ (n % g); its own inverse."""
+    nb, g = t.shape[-3], t.shape[-2]
+    if g & (g - 1):
+        raise ValueError(f"ring stage of {g} 16-byte groups; need a power of 2")
+    rows = torch.arange(nb, device=t.device)[:, None]
+    groups = torch.arange(g, device=t.device)[None, :]
+    return t[..., rows, groups ^ (rows % g), :]
+
+
+def pack_weight(w: torch.Tensor, p: int) -> torch.Tensor:
+    """A folded (N, K) weight, output channel major, -> the same shape in
+    the ring's order: (N / NB, K / KC) tiles, output tile major, each tile
+    NB rows of KC with the 16-byte group j of row n stored at j ^ (n % g)
+    (g = KC / 8 groups), the shared-memory layout the kernel's ldmatrix
+    loads read without bank conflicts."""
+    nb, kc = ring_tile(p)
+    n, k = w.shape
+    t = w.reshape(n // nb, nb, k // kc, kc // 8, 8).permute(0, 2, 1, 3, 4)
+    return _swizzled(t).reshape(n, k).contiguous()
+
+
+def unpack_weight(w: torch.Tensor, p: int) -> torch.Tensor:
+    """The inverse of `pack_weight`."""
+    nb, kc = ring_tile(p)
+    n, k = w.shape
+    t = _swizzled(w.reshape(n // nb, k // kc, nb, kc // 8, 8))
+    return t.permute(0, 2, 1, 3, 4).reshape(n, k)
 
 
 @dataclasses.dataclass(frozen=True)
 class FoldedBottleneck:
-    """One identity bottleneck with inference BatchNorm folded in, in the
-    kernel's layout (output channel major, input channel contiguous):
-    w1 (P, C), w2 (P, 9 * P) with the taps in (dy, dx) row-major order and
-    input channels fastest, w3 (C, P), all bf16; b1, b2 (P,), b3 (C,)
-    float32. C = 4P."""
+    """One identity bottleneck with inference BatchNorm folded in. The
+    matrices (output channel major, input channel contiguous) are w1 (P, C),
+    w2 (P, 9 * P) with the taps in (dy, dx) row-major order and input
+    channels fastest, w3 (C, P), all bf16, each stored in the kernel's ring
+    order (`pack_weight`; `unpack_weight` gives the matrix back); b1, b2
+    (P,), b3 (C,) float32. C = 4P."""
     w1: torch.Tensor
     b1: torch.Tensor
     w2: torch.Tensor
@@ -63,12 +110,12 @@ def fold_bottleneck(block, eps: float = 1e-5) -> FoldedBottleneck:
         w3, b3 = fold(block.conv3, block.bn3)
         p = w1.shape[0]
         return FoldedBottleneck(
-            w1=w1.reshape(p, -1).to(torch.bfloat16).contiguous(),
+            w1=pack_weight(w1.reshape(p, -1).to(torch.bfloat16), p),
             b1=b1.contiguous(),
-            w2=w2.permute(0, 2, 3, 1).reshape(p, 9 * p).to(torch.bfloat16)
-            .contiguous(),
+            w2=pack_weight(w2.permute(0, 2, 3, 1).reshape(p, 9 * p)
+                           .to(torch.bfloat16), p),
             b2=b2.contiguous(),
-            w3=w3.reshape(-1, p).to(torch.bfloat16).contiguous(),
+            w3=pack_weight(w3.reshape(-1, p).to(torch.bfloat16), p),
             b3=b3.contiguous())
 
 
@@ -76,35 +123,45 @@ def fused_bottleneck_plain(x: torch.Tensor, fb: FoldedBottleneck) -> torch.Tenso
     """Three float32 convs on the bf16 values, rounding y1 and y2 to bf16,
     the residual added in float32, the output rounded to bf16."""
     p, c = fb.w1.shape
+    w1, w2, w3 = (unpack_weight(w, p).float() for w in (fb.w1, fb.w2, fb.w3))
     xf = x.permute(0, 3, 1, 2).float()
-    y1 = F.relu(F.conv2d(xf, fb.w1.float().reshape(p, c, 1, 1), fb.b1))
+    y1 = F.relu(F.conv2d(xf, w1.reshape(p, c, 1, 1), fb.b1))
     y1 = y1.to(torch.bfloat16).float()
-    w2 = fb.w2.float().reshape(p, 3, 3, p).permute(0, 3, 1, 2)
+    w2 = w2.reshape(p, 3, 3, p).permute(0, 3, 1, 2)
     y2 = F.relu(F.conv2d(y1, w2, fb.b2, padding=1)).to(torch.bfloat16).float()
-    y3 = F.conv2d(y2, fb.w3.float().reshape(c, p, 1, 1), fb.b3)
+    y3 = F.conv2d(y2, w3.reshape(c, p, 1, 1), fb.b3)
     return F.relu(y3 + xf).to(torch.bfloat16).permute(0, 2, 3, 1)
 
 
 def tile_shape(p: int) -> tuple[int, int]:
-    """The kernel's output tile (TH, TW): 8x16 for the narrow first stage,
-    8x8 above it, so that the y1 halo and y2 fit in shared memory."""
-    return (8, 16) if p <= 64 else (8, 8)
+    """The kernel's output tile (TH, TW): 8x16 up to P = 256, 8x8 at
+    P = 512, where a 16-wide tile's y1 halo alone would not fit."""
+    return (8, 16) if p <= 256 else (8, 8)
 
 
 def smem_bytes(p: int) -> int:
-    """Shared memory of one block: the bf16 y1 halo tile, then one buffer
-    that holds the staged x chunk (phase 1) and later y2, rows padded to
-    32 and each row padded by 8 elements against bank conflicts."""
+    """Shared memory of one block, as the kernel lays it out: 1024 bytes to
+    align what follows; one area that holds the ring's x stages in phase 1
+    (the halo rows, 128 bytes each, a stage rounded to 1024 bytes, and room
+    for the reads of the halo's padding to a multiple of 64 rows) and y2
+    after; the bf16 y1 halo tile; the ring's weight stages; two mbarriers a
+    stage. Rows of y1 and y2 are padded by 8 elements against bank
+    conflicts."""
     th, tw = tile_shape(p)
-    halo = -(-(th + 2) * (tw + 2) // 32) * 32
+    nb, kc = ring_tile(p)
+    stages = ring_stages(p)
+    halo = (th + 2) * (tw + 2)
+    m1 = -(-halo // 64) * 64
+    x_stage = -(-halo * kc * 2 // 1024) * 1024
+    area = max(stages * x_stage + (m1 - halo) * kc * 2, th * tw * (p + 8) * 2)
     y1 = halo * (p + 8) * 2
-    return y1 + max(halo * (64 + 8) * 2, th * tw * (p + 8) * 2)
+    return 1024 + area + y1 + stages * (nb * kc * 2 + 16)
 
 
 def fused_bottleneck(x: torch.Tensor, fb: FoldedBottleneck) -> torch.Tensor:
     """x (B, H, W, C) bf16 -> (B, H, W, C) bf16, one identity bottleneck.
     On CUDA, x must be contiguous NHWC (a channels_last NCHW tensor
-    permuted to NHWC is), C = 4P with P a multiple of 32."""
+    permuted to NHWC is), C = 4P with P one of `KERNEL_P`."""
     if x.device.type == "cpu":
         return fused_bottleneck_plain(x, fb)
     dev = x.device
@@ -116,16 +173,17 @@ def fused_bottleneck(x: torch.Tensor, fb: FoldedBottleneck) -> torch.Tensor:
         raise TypeError(f"fused_bottleneck: need bf16 x and weights, float32 "
                         f"biases; got {x.dtype}, {fb.w1.dtype}, {fb.b1.dtype}")
     p, c = fb.w1.shape
-    if (x.dim() != 4 or x.shape[-1] != c or c != 4 * p or p % 32
+    if (x.dim() != 4 or x.shape[-1] != c or c != 4 * p or p not in KERNEL_P
             or fb.w2.shape != (p, 9 * p) or fb.w3.shape != (c, p)
             or fb.b1.shape != (p,) or fb.b2.shape != (p,) or fb.b3.shape != (c,)):
         raise ValueError(f"fused_bottleneck: x {tuple(x.shape)} with w1 "
                          f"{tuple(fb.w1.shape)}, w2 {tuple(fb.w2.shape)}, w3 "
-                         f"{tuple(fb.w3.shape)}; need (B, H, W, 4P), P % 32 == 0")
-    if not x.is_contiguous() or x.data_ptr() % 16 or not all(
+                         f"{tuple(fb.w3.shape)}; need (B, H, W, 4P), P in {KERNEL_P}")
+    if not x.is_contiguous() or any(t.data_ptr() % 16 for t in (
+            x, fb.w1, fb.w2, fb.w3)) or not all(
             t.is_contiguous() for t in fb.tensors()):
-        raise ValueError("fused_bottleneck: x (NHWC, 16-byte aligned) and the "
-                         "folded weights must be contiguous")
+        raise ValueError("fused_bottleneck: x (NHWC) and the folded weights "
+                         "must be contiguous and 16-byte aligned")
     smem = smem_bytes(p)
     if smem > SMEM_LIMIT:
         raise ValueError(f"fused_bottleneck: P={p} needs {smem} bytes of "

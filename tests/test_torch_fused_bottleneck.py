@@ -25,7 +25,9 @@ from sgv3d_tpu_torch.api import BEVHeightPredictor
 from sgv3d_tpu_torch.models.bev_height import BEVHeight
 from sgv3d_tpu_torch.nn.resnet import Bottleneck, ResNet
 from sgv3d_tpu_torch.ops.fused_bottleneck import (
-    FoldedBottleneck, fold_bottleneck, fused_bottleneck, fused_bottleneck_plain)
+    KERNEL_P, SMEM_LIMIT, FoldedBottleneck, fold_bottleneck, fused_bottleneck,
+    fused_bottleneck_plain, pack_weight, ring_tile, smem_bytes, tile_shape,
+    unpack_weight)
 from sgv3d_tpu_torch.weights import from_flax
 from tests.test_pallas_bottleneck import _make_block
 from tests.test_torch_modules import _shapes
@@ -43,11 +45,12 @@ def _port_block(variables, planes, c):
 def _as_jax_layout(fb: FoldedBottleneck) -> dict:
     """The port's kernel layout -> `fold_bottleneck_params`' layout."""
     p, c = fb.w1.shape
-    f = lambda t: t.float().numpy()   # noqa: E731
+    f = lambda t: unpack_weight(t, p).float().numpy()   # noqa: E731
     return {"w1": f(fb.w1).T,
             "w2": f(fb.w2).reshape(p, 9, p).transpose(1, 2, 0),
             "w3": f(fb.w3).T,
-            "b1": f(fb.b1)[None], "b2": f(fb.b2)[None], "b3": f(fb.b3)[None]}
+            "b1": fb.b1.numpy()[None], "b2": fb.b2.numpy()[None],
+            "b3": fb.b3.numpy()[None]}
 
 
 def test_fold_matches_jax():
@@ -172,3 +175,37 @@ def test_fused_convs_raises_where_it_cannot_be_honoured():
         ResNet(18, fused=True)
     with pytest.raises(ValueError, match="projection"):
         fold_bottleneck(Bottleneck(16, 8))
+
+
+@pytest.mark.parametrize("p", KERNEL_P)
+def test_kernel_plan_fits(p):
+    """The tile of every r50/r101 width: output pixels a multiple of 32
+    (the mma.sync warp tiling; 64 once the products run on wgmma), the
+    block's shared memory within sm_90's limit, whole ring stages."""
+    th, tw = tile_shape(p)
+    nb, kc = ring_tile(p)
+    assert (th * tw) % 32 == 0 and tw % 8 == 0
+    assert smem_bytes(p) <= SMEM_LIMIT
+    assert p % nb == 0 and p % kc == 0 and kc == 64
+
+
+@pytest.mark.parametrize("p", (8,) + KERNEL_P)
+def test_packed_weights_unpack_exactly(p):
+    """pack_weight only moves elements: unpacking gives back the (P, C),
+    (P, 9P) and (C, P) matrices bit for bit, and a stage's tile is the
+    matrix block it claims, 16-byte groups swizzled by row."""
+    gen = torch.Generator().manual_seed(p)
+    c = 4 * p
+    for n, k in ((p, c), (p, 9 * p), (c, p)):
+        w = torch.randn(n, k, generator=gen).to(torch.bfloat16)
+        packed = pack_weight(w, p)
+        assert packed.shape == w.shape and packed.is_contiguous()
+        assert torch.equal(unpack_weight(packed, p), w)
+        nb, kc = ring_tile(p)
+        g = kc // 8
+        stage = packed.reshape(-1)[nb * kc:2 * nb * kc].reshape(nb, g, 8)
+        block = w[:nb, kc:2 * kc].reshape(nb, g, 8) if k > kc else \
+            w[nb:2 * nb, :kc].reshape(nb, g, 8)
+        for row in (0, nb - 1):
+            for j in range(g):
+                assert torch.equal(stage[row, j], block[row, j ^ (row % g)])
