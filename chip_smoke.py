@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -204,9 +205,32 @@ def phase_build():
           f"-> {lib_path.relative_to(cuda_lib.BUILD_ROOT.parents[1])}")
     log = lib_path.parent / "nvcc.log"
     if log.exists():
+        name = "?"
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] ptxas: {line.strip()}")
+            if "Compiling entry function" in line:
+                name = _kernel_label(line.split("'")[1])
+            elif "registers" in line or "spill" in line:
+                print(f"[build] ptxas {name}: {line.split(':', 1)[-1].strip()}")
+
+
+def _kernel_label(mangled: str) -> str:
+    """A short name for a mangled kernel symbol: its first identifier that
+    ends in "kernel", and K3's template arguments (P, TH, TW, stages)."""
+    names, i = [], 0
+    while i < len(mangled):
+        m = re.match(r"(\d+)", mangled[i:])
+        if not m:
+            i += 1
+            continue
+        n, start = int(m.group(1)), i + len(m.group(1))
+        names.append(mangled[start:start + n])
+        i = start + n
+    label = next((n for n in names if n.endswith("kernel")), mangled[:40])
+    args = re.search(r"CfgILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", mangled)
+    if args:
+        p, th, tw, st = args.groups()
+        label += f"<P={p}, {th}x{tw}, {st} stages>"
+    return label
 
 
 def phase_kernels(dev, smi) -> list[dict]:

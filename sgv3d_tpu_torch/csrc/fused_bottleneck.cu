@@ -22,15 +22,14 @@
 // chunks. One producer thread walks the same sequence of chunks as the
 // eight consumer warps and keeps a ring of 2 to 4 shared-memory stages
 // full with asynchronous copies, each completing on the stage's "full"
-// mbarrier; the consumers release a stage on its "empty" mbarrier, after a
-// proxy fence that orders their ldmatrix reads before the stage's next
-// (async-proxy) fill. A stage holds one NB x 64 tile of the folded
-// weights, one cp.async.bulk copy: `fold_bottleneck` stores the weights in
-// the order the ring consumes them (output-channel tile, then K chunk),
-// each tile already in its shared-memory layout, rows of 64 bf16 (128
-// bytes) with the 16-byte group g of row n at g ^ (n & 7), so the ldmatrix
-// loads of 8 rows hit 32 banks. Every weight byte crosses from L2 to the SM
-// once a block per phase, shared by all eight warps. In phase 1 a stage
+// mbarrier; the consumers release a stage on its "empty" mbarrier once
+// their products from it are complete. A stage holds one NB x 64 tile of
+// the folded weights, one cp.async.bulk copy: `fold_bottleneck` stores the
+// weights in the order the ring consumes them (output-channel tile, then K
+// chunk), each tile already in wgmma's K-major 128-byte-swizzled layout
+// (rows of 64 bf16, the 16-byte group g of row n at g ^ (n & 7)), so a
+// stage needs no tensor map. Every weight byte crosses from L2 to the SM
+// once a block per phase, shared by both warpgroups. In phase 1 a stage
 // also holds the 64-channel chunk of x on the (TH+2) x (TW+2) halo tile,
 // one TMA load of a 4-D box (tensor map over x as (C, W, H, batch)) with
 // the same 128-byte swizzle; TMA fills the halo pixels outside the image
@@ -45,8 +44,13 @@
 //      row addresses and the W border needs no zero columns;
 //   3. out = relu(y2 . w3 + b3 + x), the residual read from device memory
 //      in the epilogue, stored bf16; rows outside the image are not stored.
-// Warps compute with mma.sync m16n8k16 (bf16 in, fp32 accumulators), A and
-// B fragments by ldmatrix from shared memory; wgmma is later work.
+// The eight consumer warps are two warpgroups issuing wgmma m64nNk16 (bf16
+// in, fp32 accumulators, N = NB / 2: each warpgroup takes every m64 row
+// block of a pass and half its columns), B from the weight stage by
+// descriptor; A by descriptor from the x stage in phase 1, and from
+// registers filled by ldmatrix in phases 2 and 3 (the shifted halo rows of
+// phase 2 are then plain row addresses, and y1 and y2 keep rows padded by
+// 8 elements against bank conflicts).
 //
 // Tile per P (output pixels TH x TW, halo rows padded to M1 for the phase-1
 // warp tiling; shared memory from `smem_bytes` in ops/fused_bottleneck.py):
@@ -98,18 +102,10 @@ struct Cfg {
   // + 1024 bytes to align the area's start
   static constexpr int SMEM = 1024 + AREA_BYTES + Y1_BYTES +
                               STAGES * WSTAGE_BYTES + 2 * STAGES * 8;
-  // warp tiles: phase 1 4 (M) x 2 (N) warps; phases 2, 3 4 x 2 at 128 rows,
-  // 2 x 4 at 64 rows; MT m16 tiles by NT n8 tiles a warp
-  static constexpr int MT1 = M1 / 64;
-  static constexpr int NT1 = NB / 16;
-  static constexpr int WM23 = M2 == 128 ? 4 : 2;
-  static constexpr int MT23 = M2 / (16 * WM23);
-  static constexpr int NT23 = NB / (8 * (kConsumerWarps / WM23));
   static constexpr int KCH1 = C / kKC;       // K chunks of phase 1
   static constexpr int KCH2 = 9 * P / kKC;   // of phase 2 (tap-major)
   static constexpr int KCH3 = P / kKC;       // of phase 3
-  static_assert(P % kKC == 0 && M2 % (16 * WM23) == 0, "tile");
-  static_assert(NT1 % 2 == 0 && NT23 % 2 == 0 && MT23 >= 1, "warp tile");
+  static_assert(P % kKC == 0 && M2 % 64 == 0 && NB % 16 == 0, "tile");
   static_assert(Y1_BYTES % 16 == 0 && AREA_BYTES % 16 == 0, "alignment");
   static_assert(SMEM <= 232448, "shared memory");
 };
@@ -189,15 +185,6 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumerWarps * 32) : "memory");
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
   return *reinterpret_cast<uint32_t*>(&v);
@@ -216,75 +203,125 @@ struct Ring {
   }
 };
 
-template <int MT, int NT>
-__device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
+template <int MB, int NJ>
+__device__ __forceinline__ void zero(float (&acc)[MB][NJ][4]) {
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+  for (int i = 0; i < MB; ++i)
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 }
 
-// One ring stage's 64-deep product of a warp's MT x NT tile. a_addr[i]: this
-// lane's ldmatrix row address (shared) of m16 tile i at the chunk's k = 0,
-// in a 128-byte swizzled stage row (A_SWIZZLED) or a padded row, where it
-// includes the lane's k half;
-// w: the stage's weight tile; b_row[j2]: byte offset of this lane's weight
-// row for the n16 pair j2. ldmatrix x4 lane roles: lanes 8q..8q+7 address
-// the rows of matrix q; for A, q = (k half) * 2 + (row half), for B,
-// q = (n half) * 2 + (k half).
-template <bool A_SWIZZLED, int MT, int NT>
-__device__ __forceinline__ void stage_product(float (&acc)[MT][NT][4],
-                                              const uint32_t (&a_addr)[MT],
-                                              uint32_t w,
-                                              const uint32_t (&b_row)[NT / 2],
-                                              int lane) {
-#pragma unroll
-  for (int kk = 0; kk < kKC / 16; ++kk) {
-    uint32_t a[MT][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-      ldsm_x4(a[i], a_addr[i] + (A_SWIZZLED
-                                     ? ((2 * kk + (lane >> 4)) ^ (lane & 7)) << 4
-                                     : kk * 32));
-    const uint32_t swz = ((2 * kk + ((lane >> 3) & 1)) ^ (lane & 7)) << 4;
-#pragma unroll
-    for (int j2 = 0; j2 < NT / 2; ++j2) {
-      uint32_t b[4];
-      ldsm_x4(b, w + b_row[j2] + swz);
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        mma_bf16(acc[i][2 * j2], a[i], b[0], b[1]);
-        mma_bf16(acc[i][2 * j2 + 1], a[i], b[2], b[3]);
-      }
-    }
-  }
+// ---- wgmma -------------------------------------------------------------------
+// A warpgroup (4 warps) multiplies an m64 x k16 A by a k16 x N B into 64 x N
+// fp32 accumulators; warp i holds rows 16i..16i+15, in the m16n8 fragment
+// layout of mma.sync (d[j] = columns 8j..8j+7). B, and A in phase 1, are
+// read from shared memory through descriptors; A in phases 2 and 3 from
+// registers filled by ldmatrix, so that phase 2's shifted halo rows are
+// plain row addresses.
+
+// Descriptor of a K-major operand stored as 128-byte rows with the 128-byte
+// swizzle, 8-row atoms 1024 bytes apart, from shared address `addr` (the
+// atom 1024-byte aligned); a k16 step adds 32 bytes, 2 in the address field.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
-// Consume one ring stage: wait for it to fill, multiply, release it.
-template <bool A_SWIZZLED, int MT, int NT, int STAGES>
-__device__ __forceinline__ void consume(float (&acc)[MT][NT][4],
-                                        const uint32_t (&a_addr)[MT],
-                                        const uint32_t (&b_row)[NT / 2],
-                                        Ring<STAGES>& ring, uint32_t full0,
-                                        uint32_t empty0, uint32_t w, int lane) {
-  mbar_wait(full0 + 8 * ring.slot, ring.phase);
-  stage_product<A_SWIZZLED>(acc, a_addr, w, b_row, lane);
-  // the stage's next fill is an async-proxy write: order this thread's
-  // ldmatrix reads before it (without the fence, a refill raced them)
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+// Commit the warpgroup's products and wait for them all.
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from touching registers that an in-flight wgmma reads
+// or writes before this point.
+template <int MB, int NJ>
+__device__ __forceinline__ void pin(float (&acc)[MB][NJ][4]) {
+#pragma unroll
+  for (int i = 0; i < MB; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(acc[i][j][e])::"memory");
+}
+
+template <int KK, int MB>
+__device__ __forceinline__ void pin(uint32_t (&a)[KK][MB][4]) {
+#pragma unroll
+  for (int k = 0; k < KK; ++k)
+#pragma unroll
+    for (int i = 0; i < MB; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[k][i][e])::"memory");
+}
+
+// m64nNk16, bf16 in, fp32 accumulators (scale-d 1), both operands K-major:
+// wgmma_ss with A and B from descriptors, wgmma_rs with A from registers.
+__device__ __forceinline__ void wgmma_ss(float (&d)[4][4], uint64_t a_desc, uint64_t b_desc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(a_desc), "l"(b_desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[4][4], const uint32_t (&a)[4], uint64_t b_desc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t a_desc, uint64_t b_desc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(a_desc), "l"(b_desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4], uint64_t b_desc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(1));
+}
+
+// Release a ring stage once this warp's products from it are complete.
+template <int STAGES>
+__device__ __forceinline__ void release(Ring<STAGES>& ring, uint32_t empty0,
+                                        int lane) {
   __syncwarp();
   if (lane == 0) mbar_arrive(empty0 + 8 * ring.slot);
   ring.advance();
-}
-
-template <int NT>
-__device__ __forceinline__ void weight_rows(uint32_t (&b_row)[NT / 2], int n0,
-                                            int lane) {
-#pragma unroll
-  for (int j2 = 0; j2 < NT / 2; ++j2)
-    b_row[j2] = (n0 + 16 * j2 + ((lane >> 4) << 3) + (lane & 7)) * (kKC * 2);
 }
 
 template <class K>
@@ -298,13 +335,13 @@ fused_bottleneck_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                         const __grid_constant__ CUtensorMap xmap, int h, int w,
                         int tiles_x, int tiles_y) {
   extern __shared__ __align__(128) unsigned char smem[];
-  // x stages in phase 1, y2 after
-  unsigned char* area = smem + ((1024 - (smem_u32(smem) & 1023)) & 1023);
+  // weight stages, then the area (x stages in phase 1, y2 after), each
+  // 1024-byte aligned for the 128-byte swizzle; then y1 and the barriers
+  unsigned char* wring = smem + ((1024 - (smem_u32(smem) & 1023)) & 1023);
+  unsigned char* area = wring + K::STAGES * K::WSTAGE_BYTES;
   bf16* y2s = reinterpret_cast<bf16*>(area);
   bf16* y1s = reinterpret_cast<bf16*>(area + K::AREA_BYTES);
-  unsigned char* wring = area + K::AREA_BYTES + K::Y1_BYTES;
-  uint64_t* bars =
-      reinterpret_cast<uint64_t*>(wring + K::STAGES * K::WSTAGE_BYTES);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(area + K::AREA_BYTES + K::Y1_BYTES);
   const uint32_t full0 = smem_u32(bars);              // full[s] = full0 + 8s
   const uint32_t empty0 = smem_u32(bars + K::STAGES);  // empty[s]
 
@@ -343,71 +380,78 @@ fused_bottleneck_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
     // ---- producer: the chunks of all three phases, in consumption order --
     if (lane != 0) return;
     Ring<K::STAGES> ring;
-    const bf16* srcs[3] = {w1, w2, w3};
-    const int tiles[3] = {K::P / K::NB, K::P / K::NB, K::C / K::NB};
-    const int chunks[3] = {K::KCH1, K::KCH2, K::KCH3};
-    for (int ph = 0; ph < 3; ++ph) {
-      for (int st = 0; st < tiles[ph] * chunks[ph]; ++st) {
-        const int q = (st % chunks[ph] + rot) % chunks[ph];
-        const int tile_nk = (st / chunks[ph] + rot) % tiles[ph] * chunks[ph] + q;
+    // one phase: `tiles` output-channel tiles of `chunks` K chunks each
+    auto walk = [&](const bf16* src, int tiles, int chunks, bool with_x) {
+      for (int st = 0; st < tiles * chunks; ++st) {
+        const int q = (st % chunks + rot) % chunks;
+        const int tile_nk = (st / chunks + rot) % tiles * chunks + q;
         mbar_wait(empty0 + 8 * ring.slot, ring.phase ^ 1);
         const uint32_t full = full0 + 8 * ring.slot;
-        mbar_arrive_expect_tx(full, K::WSTAGE_BYTES + (ph == 0 ? K::HALO * kRow : 0));
+        mbar_arrive_expect_tx(full, K::WSTAGE_BYTES + (with_x ? K::HALO * kRow : 0));
         bulk_g2s(smem_u32(wring + ring.slot * K::WSTAGE_BYTES),
-                 srcs[ph] + static_cast<size_t>(tile_nk) * K::NB * kKC,
+                 src + static_cast<size_t>(tile_nk) * K::NB * kKC,
                  K::WSTAGE_BYTES, full);
-        if (ph == 0)   // the halo box of chunk q; 0 outside the image
+        if (with_x)   // the halo box of chunk q; 0 outside the image
           tma_load_4d(smem_u32(area + ring.slot * K::XSTAGE_BYTES), &xmap,
                       q * kKC, ox0 - 1, oy0 - 1, img, full);
         ring.advance();
       }
-    }
+    };
+    walk(w1, K::P / K::NB, K::KCH1, true);
+    walk(w2, K::P / K::NB, K::KCH2, false);
+    walk(w3, K::C / K::NB, K::KCH3, false);
     return;
   }
 
-  // ---- consumers ------------------------------------------------------------
+  // ---- consumers: two warpgroups; in each phase a warpgroup takes every
+  // m64 row block and its half of the NB columns of a pass ----------------
+  constexpr int N = K::NB / 2;
+  const int wg = warp >> 2;
+  const int m_w = (warp & 3) * 16;     // this warp's rows in an m64 block
   const int g = lane >> 2;
   const int t = lane & 3;
   // this lane's ldmatrix A row within an m16 tile, and its k half (bytes)
   const int a_r = ((lane >> 3) & 1) * 8 + (lane & 7);
   const int a_k = (lane >> 4) * 16;
-  const uint32_t wring_u = smem_u32(wring);
+  const uint32_t w_wg = smem_u32(wring) + wg * N * kRow;  // + slot's stage
   Ring<K::STAGES> ring;
 
   // ---- phase 1: y1 on the halo tile ----------------------------------------
   {
-    constexpr int MT = K::MT1, NT = K::NT1;
-    const int m0 = (warp >> 1) * 16 * MT;
-    const int nw = (warp & 1) * 8 * NT;
-    uint32_t b_row[NT / 2];
-    weight_rows<NT>(b_row, nw, lane);
-    float acc[MT][NT][4];
+    constexpr int MB = K::M1 / 64;
+    float acc[MB][N / 8][4];
     for (int nt = 0; nt < K::P / K::NB; ++nt) {
       const int ntr = (nt + rot) % (K::P / K::NB);
       zero(acc);
       for (int kc = 0; kc < K::KCH1; ++kc) {
-        uint32_t a_addr[MT];
         const uint32_t xs = smem_u32(area + ring.slot * K::XSTAGE_BYTES);
+        const uint64_t b_desc = sw128_desc(w_wg + ring.slot * K::WSTAGE_BYTES);
+        mbar_wait(full0 + 8 * ring.slot, ring.phase);
+        wgmma_fence();
 #pragma unroll
-        for (int i = 0; i < MT; ++i)
-          a_addr[i] = xs + (m0 + 16 * i + a_r) * kRow;
-        consume<true>(acc, a_addr, b_row, ring, full0, empty0,
-                wring_u + ring.slot * K::WSTAGE_BYTES, lane);
+        for (int kk = 0; kk < kKC / 16; ++kk)
+#pragma unroll
+          for (int mb = 0; mb < MB; ++mb)
+            wgmma_ss(acc[mb], sw128_desc(xs + mb * 64 * kRow) + 2 * kk,
+                     b_desc + 2 * kk);
+        wgmma_commit_wait();
+        pin(acc);
+        release(ring, empty0, lane);
       }
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
+      for (int mb = 0; mb < MB; ++mb)
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          const int row = m0 + 16 * i + g + 8 * half;
+          const int row = mb * 64 + m_w + g + 8 * half;
           if (row >= K::HALO) continue;
           const bool inside = halo_inside(row);
 #pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            const int n = ntr * K::NB + nw + 8 * j + 2 * t;
+          for (int j = 0; j < N / 8; ++j) {
+            const int n = ntr * K::NB + wg * N + 8 * j + 2 * t;
             const float v0 =
-                inside ? fmaxf(acc[i][j][2 * half] + __ldg(b1 + n), 0.f) : 0.f;
+                inside ? fmaxf(acc[mb][j][2 * half] + __ldg(b1 + n), 0.f) : 0.f;
             const float v1 =
-                inside ? fmaxf(acc[i][j][2 * half + 1] + __ldg(b1 + n + 1), 0.f)
+                inside ? fmaxf(acc[mb][j][2 * half + 1] + __ldg(b1 + n + 1), 0.f)
                        : 0.f;
             *reinterpret_cast<uint32_t*>(y1s + row * K::YS + n) =
                 pack_bf16(v0, v1);
@@ -417,21 +461,18 @@ fused_bottleneck_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   }
   consumer_sync();  // y1 complete; every x stage consumed
 
-  constexpr int MT = K::MT23, NT = K::NT23;
-  const int m0 = (warp / (kConsumerWarps / K::WM23)) * 16 * MT;
-  const int nw = (warp % (kConsumerWarps / K::WM23)) * 8 * NT;
-  uint32_t b_row[NT / 2];
-  weight_rows<NT>(b_row, nw, lane);
-  float acc[MT][NT][4];
+  constexpr int MB = K::M2 / 64;
+  float acc[MB][N / 8][4];
+  uint32_t a[kKC / 16][MB][4];
 
   // ---- phase 2: y2 = relu(conv3x3(y1) + b2), nine shifted products ---------
   {
-    uint32_t base[MT];  // address of this lane's tap-(0, 0) halo row
+    uint32_t base[MB];  // address of this lane's tap-(0, 0) halo row
 #pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      const int row = m0 + 16 * i + a_r;
-      base[i] = smem_u32(y1s) +
-                ((row / K::TW) * K::HALO_W + row % K::TW) * K::YS * 2 + a_k;
+    for (int mb = 0; mb < MB; ++mb) {
+      const int row = mb * 64 + m_w + a_r;
+      base[mb] = smem_u32(y1s) +
+                 ((row / K::TW) * K::HALO_W + row % K::TW) * K::YS * 2 + a_k;
     }
     for (int nt = 0; nt < K::P / K::NB; ++nt) {
       const int ntr = (nt + rot) % (K::P / K::NB);
@@ -440,24 +481,36 @@ fused_bottleneck_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
         const int qr = (q + rot) % K::KCH2;     // tap-major K chunk
         const int tap = qr / (K::P / kKC);
         const int shift = (tap / 3) * K::HALO_W + tap % 3;
-        uint32_t a_addr[MT];
+        const uint32_t a_off = (shift * K::YS + qr % (K::P / kKC) * kKC) * 2;
 #pragma unroll
-        for (int i = 0; i < MT; ++i)
-          a_addr[i] = base[i] + (shift * K::YS + qr % (K::P / kKC) * kKC) * 2;
-        consume<false>(acc, a_addr, b_row, ring, full0, empty0,
-                wring_u + ring.slot * K::WSTAGE_BYTES, lane);
+        for (int kk = 0; kk < kKC / 16; ++kk)
+#pragma unroll
+          for (int mb = 0; mb < MB; ++mb)
+            ldsm_x4(a[kk][mb], base[mb] + a_off + kk * 32);
+        const uint64_t b_desc = sw128_desc(w_wg + ring.slot * K::WSTAGE_BYTES);
+        mbar_wait(full0 + 8 * ring.slot, ring.phase);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kKC / 16; ++kk)
+#pragma unroll
+          for (int mb = 0; mb < MB; ++mb)
+            wgmma_rs(acc[mb], a[kk][mb], b_desc + 2 * kk);
+        wgmma_commit_wait();
+        pin(acc);
+        pin(a);
+        release(ring, empty0, lane);
       }
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
+      for (int mb = 0; mb < MB; ++mb)
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          const int row = m0 + 16 * i + g + 8 * half;
+          const int row = mb * 64 + m_w + g + 8 * half;
 #pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            const int n = ntr * K::NB + nw + 8 * j + 2 * t;
+          for (int j = 0; j < N / 8; ++j) {
+            const int n = ntr * K::NB + wg * N + 8 * j + 2 * t;
             *reinterpret_cast<uint32_t*>(y2s + row * K::YS + n) =
-                pack_bf16(fmaxf(acc[i][j][2 * half] + __ldg(b2 + n), 0.f),
-                          fmaxf(acc[i][j][2 * half + 1] + __ldg(b2 + n + 1), 0.f));
+                pack_bf16(fmaxf(acc[mb][j][2 * half] + __ldg(b2 + n), 0.f),
+                          fmaxf(acc[mb][j][2 * half + 1] + __ldg(b2 + n + 1), 0.f));
           }
         }
     }
@@ -466,40 +519,52 @@ fused_bottleneck_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 
   // ---- phase 3: out = relu(y2 . w3 + b3 + x) --------------------------------
   {
-    uint32_t a_base[MT];
+    uint32_t a_base[MB];
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
-      a_base[i] = smem_u32(y2s) + (m0 + 16 * i + a_r) * K::YS * 2 + a_k;
+    for (int mb = 0; mb < MB; ++mb)
+      a_base[mb] = smem_u32(y2s) + (mb * 64 + m_w + a_r) * K::YS * 2 + a_k;
     for (int nt = 0; nt < K::C / K::NB; ++nt) {
       const int ntr = (nt + rot) % (K::C / K::NB);
       zero(acc);
       for (int kc = 0; kc < K::KCH3; ++kc) {
-        uint32_t a_addr[MT];
+        const uint32_t a_off = (kc + rot) % K::KCH3 * kKC * 2;
 #pragma unroll
-        for (int i = 0; i < MT; ++i)
-          a_addr[i] = a_base[i] + (kc + rot) % K::KCH3 * kKC * 2;
-        consume<false>(acc, a_addr, b_row, ring, full0, empty0,
-                wring_u + ring.slot * K::WSTAGE_BYTES, lane);
+        for (int kk = 0; kk < kKC / 16; ++kk)
+#pragma unroll
+          for (int mb = 0; mb < MB; ++mb)
+            ldsm_x4(a[kk][mb], a_base[mb] + a_off + kk * 32);
+        const uint64_t b_desc = sw128_desc(w_wg + ring.slot * K::WSTAGE_BYTES);
+        mbar_wait(full0 + 8 * ring.slot, ring.phase);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kKC / 16; ++kk)
+#pragma unroll
+          for (int mb = 0; mb < MB; ++mb)
+            wgmma_rs(acc[mb], a[kk][mb], b_desc + 2 * kk);
+        wgmma_commit_wait();
+        pin(acc);
+        pin(a);
+        release(ring, empty0, lane);
       }
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
+      for (int mb = 0; mb < MB; ++mb)
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          const int row = m0 + 16 * i + g + 8 * half;
+          const int row = mb * 64 + m_w + g + 8 * half;
           const int oy = oy0 + row / K::TW;
           const int ox = ox0 + row % K::TW;
           if (oy >= h || ox >= w) continue;
           const size_t pix = (static_cast<size_t>(oy) * w + ox) * K::C;
 #pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            const int n = ntr * K::NB + nw + 8 * j + 2 * t;
+          for (int j = 0; j < N / 8; ++j) {
+            const int n = ntr * K::NB + wg * N + 8 * j + 2 * t;
             const unsigned int rv =
                 __ldg(reinterpret_cast<const unsigned int*>(ximg + pix + n));
             const __nv_bfloat162 res =
                 *reinterpret_cast<const __nv_bfloat162*>(&rv);
-            const float v0 = acc[i][j][2 * half] + __ldg(b3 + n) + __low2float(res);
+            const float v0 = acc[mb][j][2 * half] + __ldg(b3 + n) + __low2float(res);
             const float v1 =
-                acc[i][j][2 * half + 1] + __ldg(b3 + n + 1) + __high2float(res);
+                acc[mb][j][2 * half + 1] + __ldg(b3 + n + 1) + __high2float(res);
             *reinterpret_cast<uint32_t*>(oimg + pix + n) =
                 pack_bf16(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
           }
