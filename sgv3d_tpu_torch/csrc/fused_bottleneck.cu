@@ -53,12 +53,16 @@
 // 8 elements against bank conflicts).
 //
 // Tile per P (output pixels TH x TW, halo rows padded to M1 for the phase-1
-// warp tiling; shared memory from `smem_bytes` in ops/fused_bottleneck.py):
-//   P =  64: 8 x 16, NB  64, 2 stages (92,000 bytes: two blocks an SM);
-//   P = 128: 8 x 16, NB 128, 4 stages;  P = 256: 8 x 16, NB 128, 3 stages;
-//   P = 512: 8 x 8,  NB 128, 3 stages (a 16-wide tile's y1 halo alone is
-//   187 KB). The 8 x 16 tile halves the halo's share of phase 1 against
-//   8 x 8; at P = 512 only 8 x 8 leaves room for three weight stages.
+// warpgroup tiling; shared memory from `smem_bytes` in
+// ops/fused_bottleneck.py), chosen by timing the r50 stage shapes on an
+// H100 (PERF.md, PR 4):
+//   P =  64: 8 x 16, NB  64, 2 stages, 92,000 bytes: two blocks an SM;
+//   P = 128: 8 x 8,  NB 128, 2 stages, 91,232 bytes: two blocks an SM
+//            (8 x 16 with 4 stages at one block an SM took 20% longer);
+//   P = 256: 8 x 8,  NB 128, 4 stages, 176,256 bytes (336 blocks, 2.5
+//            waves on 132 SMs; 8 x 16 gave 168 blocks, 1.3 waves, 10% slower);
+//   P = 512: 8 x 8,  NB 128, 3 stages, 220,784 bytes (a 16-wide tile's y1
+//            halo alone is 187 KB).
 // Activations are NHWC bf16 (a channels_last NCHW tensor already is), so no
 // transpose and no padded copy. Every output is written once by one thread,
 // with no atomics: the result is bitwise the same on every run.
@@ -84,7 +88,6 @@ template <int P_, int TH_, int TW_, int STAGES_>
 struct Cfg {
   static constexpr int P = P_, C = 4 * P_, TH = TH_, TW = TW_;
   static constexpr int STAGES = STAGES_;
-  static constexpr int MIN_BLOCKS = P == 64 ? 2 : 1;  // blocks an SM
   static constexpr int HALO_W = TW + 2;
   static constexpr int HALO = (TH + 2) * HALO_W;
   static constexpr int M1 = (HALO + 63) / 64 * 64;  // phase-1 rows
@@ -102,6 +105,8 @@ struct Cfg {
   // + 1024 bytes to align the area's start
   static constexpr int SMEM = 1024 + AREA_BYTES + Y1_BYTES +
                               STAGES * WSTAGE_BYTES + 2 * STAGES * 8;
+  // blocks an SM: two where two fit in its 228 KB (1 KB reserved a block)
+  static constexpr int MIN_BLOCKS = 2 * (SMEM + 1024) <= 233472 ? 2 : 1;
   static constexpr int KCH1 = C / kKC;       // K chunks of phase 1
   static constexpr int KCH2 = 9 * P / kKC;   // of phase 2 (tap-major)
   static constexpr int KCH3 = P / kKC;       // of phase 3
@@ -655,10 +660,10 @@ extern "C" int fused_bottleneck_launch(const bf16* x, const bf16* w1,
       return launch<Cfg<64, 8, 16, 2>>(x, w1, b1, w2, b2, w3, b3, out, batch, h,
                                     w, th, tw, smem, stream);
     case 128:
-      return launch<Cfg<128, 8, 16, 4>>(x, w1, b1, w2, b2, w3, b3, out, batch, h,
+      return launch<Cfg<128, 8, 8, 2>>(x, w1, b1, w2, b2, w3, b3, out, batch, h,
                                      w, th, tw, smem, stream);
     case 256:
-      return launch<Cfg<256, 8, 16, 3>>(x, w1, b1, w2, b2, w3, b3, out, batch, h,
+      return launch<Cfg<256, 8, 8, 4>>(x, w1, b1, w2, b2, w3, b3, out, batch, h,
                                      w, th, tw, smem, stream);
     case 512:
       return launch<Cfg<512, 8, 8, 3>>(x, w1, b1, w2, b2, w3, b3, out, batch, h,

@@ -30,9 +30,10 @@ RING_K = 64             # K elements of a ring stage
 
 
 def ring_stages(p: int) -> int:
-    """Stages of the kernel's ring at width P: as many as shared memory
-    holds beside y1 and y2, and at P = 64 few enough for two blocks an SM."""
-    return {64: 2, 128: 4}.get(p, 3)
+    """Stages of the kernel's ring at width P, as timed on an H100: two at
+    P <= 128, where two blocks then share an SM, four at P = 256, and at
+    P = 512 the three that fit beside y1 and y2."""
+    return {64: 2, 128: 2, 256: 4}.get(p, 3)
 
 
 def ring_tile(p: int) -> tuple[int, int]:
@@ -134,9 +135,10 @@ def fused_bottleneck_plain(x: torch.Tensor, fb: FoldedBottleneck) -> torch.Tenso
 
 
 def tile_shape(p: int) -> tuple[int, int]:
-    """The kernel's output tile (TH, TW): 8x16 up to P = 256, 8x8 at
-    P = 512, where a 16-wide tile's y1 halo alone would not fit."""
-    return (8, 16) if p <= 256 else (8, 8)
+    """The kernel's output tile (TH, TW), as timed on an H100: 8x16 at
+    P = 64, 8x8 above it (more blocks in flight; at P = 512 a 16-wide
+    tile's y1 halo alone would not fit)."""
+    return (8, 16) if p <= 64 else (8, 8)
 
 
 def smem_bytes(p: int) -> int:

@@ -179,12 +179,12 @@ def test_fused_convs_raises_where_it_cannot_be_honoured():
 
 @pytest.mark.parametrize("p", KERNEL_P)
 def test_kernel_plan_fits(p):
-    """The tile of every r50/r101 width: output pixels a multiple of 32
-    (the mma.sync warp tiling; 64 once the products run on wgmma), the
-    block's shared memory within sm_90's limit, whole ring stages."""
+    """The tile of every r50/r101 width: output pixels a multiple of 64
+    (wgmma's m64 row blocks), rows of 8 pixels (phase 2's ldmatrix rows),
+    the block's shared memory within sm_90's limit, whole ring stages."""
     th, tw = tile_shape(p)
     nb, kc = ring_tile(p)
-    assert (th * tw) % 32 == 0 and tw % 8 == 0
+    assert (th * tw) % 64 == 0 and tw % 8 == 0
     assert smem_bytes(p) <= SMEM_LIMIT
     assert p % nb == 0 and p % kc == 0 and kc == 64
 
