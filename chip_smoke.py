@@ -10,10 +10,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      K1 top-k-with-cells exactly and K2 lift-splat within
      1e-5 * max|ref| + 1e-6 and bitwise equal across two runs, at the shapes
      of both served paths (SGV3D-r50: 18432 pixels, C = 87; r101: 4608
-     pixels, C = 80); K3 the fused identity bottleneck at each r50 stage's
-     shape, with large positive BN biases, within 2e-2 * max|plain| and
-     bitwise equal across two runs, timed beside the plain version and the
-     unfused cuDNN block; K4 the three gathers of the probe, exactly ctx[idx];
+     pixels, C = 80); K3 the fused identity bottleneck at ragged shapes and
+     at each r50 stage's shape, with large positive BN biases, within
+     2e-2 * max|plain| and bitwise equal across two runs, timed beside the
+     plain version and the unfused cuDNN block; K4 the three gathers of the
+     probe, exactly ctx[idx]. Each kernel's entry carries its bound (bytes
+     over 3.35 TB/s or operations over the data sheet's peak, the larger),
+     its launches a forward and one PyTorch call's time where one call
+     computes the same function (torch.topk for K1, ctx[idx] for K4);
   3. the tiny configs (copies of tests/tiny_configs.py), BEVHeight and
      SGV3D, each with a top-k lift + cull and with the all-bin lift, served
      on the card and on the CPU in float32: head tensors within 1e-3 of
