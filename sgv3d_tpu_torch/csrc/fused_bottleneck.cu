@@ -55,12 +55,12 @@
 // Tile per P (output pixels TH x TW, halo rows padded to M1 for the phase-1
 // warpgroup tiling; shared memory from `smem_bytes` in
 // ops/fused_bottleneck.py), chosen by timing the r50 stage shapes on an
-// H100 (PERF.md, PR 4):
+// H100 against the alternatives in tools/k3_probe.py (PERF.md, PR 4):
 //   P =  64: 8 x 16, NB  64, 2 stages, 92,000 bytes: two blocks an SM;
 //   P = 128: 8 x 8,  NB 128, 2 stages, 91,232 bytes: two blocks an SM
-//            (8 x 16 with 4 stages at one block an SM took 20% longer);
-//   P = 256: 8 x 8,  NB 128, 4 stages, 176,256 bytes (336 blocks, 2.5
-//            waves on 132 SMs; 8 x 16 gave 168 blocks, 1.3 waves, 10% slower);
+//            (beat 8 x 16 with 3 or 4 stages at one block an SM);
+//   P = 256: 8 x 8,  NB 128, 4 stages, 176,256 bytes: 336 blocks, 2.5
+//            waves on 132 SMs (8 x 16 gives 168 blocks, 1.3 waves);
 //   P = 512: 8 x 8,  NB 128, 3 stages, 220,784 bytes (a 16-wide tile's y1
 //            halo alone is 187 KB).
 // Activations are NHWC bf16 (a channels_last NCHW tensor already is), so no

@@ -141,17 +141,18 @@ def tile_shape(p: int) -> tuple[int, int]:
     return (8, 16) if p <= 64 else (8, 8)
 
 
-def smem_bytes(p: int) -> int:
-    """Shared memory of one block, as the kernel lays it out: 1024 bytes to
-    align what follows; one area that holds the ring's x stages in phase 1
-    (the halo rows, 128 bytes each, a stage rounded to 1024 bytes, and room
-    for the reads of the halo's padding to a multiple of 64 rows) and y2
-    after; the bf16 y1 halo tile; the ring's weight stages; two mbarriers a
-    stage. Rows of y1 and y2 are padded by 8 elements against bank
-    conflicts."""
-    th, tw = tile_shape(p)
+def smem_bytes(p: int, tile: tuple[int, int] | None = None,
+               stages: int | None = None) -> int:
+    """Shared memory of one block, as the kernel lays it out for width P
+    (with its own tile and ring depth unless given): 1024 bytes to align
+    what follows; the ring's weight stages; one area that holds the ring's
+    x stages in phase 1 (the halo rows, 128 bytes each, a stage rounded to
+    1024 bytes, and room for the reads of the halo's padding to a multiple
+    of 64 rows) and y2 after; the bf16 y1 halo tile; two mbarriers a stage.
+    Rows of y1 and y2 are padded by 8 elements against bank conflicts."""
+    th, tw = tile or tile_shape(p)
     nb, kc = ring_tile(p)
-    stages = ring_stages(p)
+    stages = stages or ring_stages(p)
     halo = (th + 2) * (tw + 2)
     m1 = -(-halo // 64) * 64
     x_stage = -(-halo * kc * 2 // 1024) * 1024
