@@ -12,10 +12,10 @@
 // What bounds it on an H100: 17 P^2 multiply-adds an output pixel (46 GFLOP
 // a block at every r50 stage at batch 4) against x read once and the output
 // written once; at the first two stages the bytes and the FLOPs bound it
-// about equally (~0.1 ms), at the last two the FLOPs (~0.05 ms). What held
-// the first version back was every warp fetching its own weight fragments
-// from L2 (up to 22 MB a block at P = 512) and loads that never overlapped
-// the math.
+// about equally (~0.1 ms), at the last two the FLOPs (~0.05 ms). A block
+// needs all of the folded weights (8.7 MB at P = 512) from L2: the design
+// below brings each weight byte into the SM once a block per phase, shared
+// by all its warps, and overlaps those loads with the products.
 //
 // Design: a thread block owns a TH x TW output tile of one image and runs
 // three phases, each a sequence of products whose K is cut into 64-channel
@@ -55,7 +55,7 @@
 // Tile per P (output pixels TH x TW, halo rows padded to M1 for the phase-1
 // warpgroup tiling; shared memory from `smem_bytes` in
 // ops/fused_bottleneck.py), chosen by timing the r50 stage shapes on an
-// H100 against the alternatives in tools/k3_probe.py (PERF.md, PR 4):
+// H100 against the alternatives in tools/k3_probe.py (see PERF.md):
 //   P =  64: 8 x 16, NB  64, 2 stages, 92,000 bytes: two blocks an SM;
 //   P = 128: 8 x 8,  NB 128, 2 stages, 91,232 bytes: two blocks an SM
 //            (beat 8 x 16 with 3 or 4 stages at one block an SM);
@@ -67,8 +67,8 @@
 // transpose and no padded copy. Every output is written once by one thread,
 // with no atomics: the result is bitwise the same on every run.
 
-#include <cuda.h>  // CUtensorMap and its enums only: the encoder is fetched
-                   // from the driver at run time, so no -lcuda
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder is looked
+                   // up at run time, so the library needs no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -585,7 +585,7 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled from the driver, looked up once.
+// cuTensorMapEncodeTiled, looked up once through the CUDA runtime.
 EncodeTiled encoder() {
   static EncodeTiled fn = [] {
     void* p = nullptr;

@@ -26,8 +26,9 @@ from sgv3d_tpu_torch.models.bev_height import BEVHeight
 from sgv3d_tpu_torch.nn.resnet import Bottleneck, ResNet
 from sgv3d_tpu_torch.ops.fused_bottleneck import (
     KERNEL_P, SMEM_LIMIT, FoldedBottleneck, fold_bottleneck, fused_bottleneck,
-    fused_bottleneck_plain, pack_weight, ring_tile, smem_bytes, tile_shape,
-    unpack_weight)
+    fused_bottleneck_plain, pack_weight, ring_stages, ring_tile, smem_bytes,
+    tile_shape, unpack_weight)
+from sgv3d_tpu_torch.tools import k3_probe
 from sgv3d_tpu_torch.weights import from_flax
 from tests.test_pallas_bottleneck import _make_block
 from tests.test_torch_modules import _shapes
@@ -187,6 +188,20 @@ def test_kernel_plan_fits(p):
     assert (th * tw) % 64 == 0 and tw % 8 == 0
     assert smem_bytes(p) <= SMEM_LIMIT
     assert p % nb == 0 and p % kc == 0 and kc == 64
+    for th, tw, stages in k3_probe.ALTERNATIVES[p]:
+        assert smem_bytes(p, (th, tw), stages) <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("p", KERNEL_P)
+def test_probe_rewrites_the_kernel_source(p):
+    """The probe's copies of the kernel: its phase stamps find their
+    anchors in the source and its launch at width P takes the variant's
+    tile and ring depth."""
+    src = k3_probe._variant_source(p, (8, 8), 5)
+    assert src.count("stamp()") == 6 and "k3_stamps" in src
+    th, tw = tile_shape(p)
+    assert f"launch<Cfg<{p}, 8, 8, 5>>" in src
+    assert f"launch<Cfg<{p}, {th}, {tw}, {ring_stages(p)}>>" not in src
 
 
 @pytest.mark.parametrize("p", (8,) + KERNEL_P)
