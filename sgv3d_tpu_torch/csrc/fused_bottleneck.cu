@@ -42,8 +42,10 @@
 //   2. y2 as nine shifted products: the A rows of tap (dy, dx) are the halo
 //      pixels at the output pixel's offset, so the shift is in the ldmatrix
 //      row addresses and the W border needs no zero columns;
-//   3. out = relu(y2 . w3 + b3 + x), the residual read from device memory
-//      in the epilogue, stored bf16; rows outside the image are not stored.
+//   3. out = relu(y2 . w3 + b3 + x): for each NB-column pass, one consumer
+//      thread TMA-loads the residual box of the tile into the (dead) y1
+//      region while the products run; the epilogue overwrites it with the
+//      bf16 output, and a TMA store writes it out, clipped to the image.
 // The eight consumer warps are two warpgroups issuing wgmma m64nNk16 (bf16
 // in, fp32 accumulators, N = NB / 2: each warpgroup takes every m64 row
 // block of a pass and half its columns), B from the weight stage by
@@ -102,9 +104,12 @@ struct Cfg {
   static constexpr int AREA_BYTES =
       cmax(STAGES * XSTAGE_BYTES + (M1 - HALO) * kRow, M2 * YS * 2);
   static constexpr int WSTAGE_BYTES = NB * kRow;
+  // phase 3's residual / output box of a pass: NB / 64 boxes of M2 rows,
+  // in the y1 region (dead by then) from its first 1024-byte boundary
+  static constexpr int RBUF_BYTES = NB / kKC * M2 * kRow;
   // + 1024 bytes to align the area's start
   static constexpr int SMEM = 1024 + AREA_BYTES + Y1_BYTES +
-                              STAGES * WSTAGE_BYTES + 2 * STAGES * 8;
+                              STAGES * WSTAGE_BYTES + (2 * STAGES + 1) * 8;
   // blocks an SM: two where two fit in its 228 KB (1 KB reserved a block)
   static constexpr int MIN_BLOCKS = 2 * (SMEM + 1024) <= 233472 ? 2 : 1;
   static constexpr int KCH1 = C / kKC;       // K chunks of phase 1
@@ -113,6 +118,7 @@ struct Cfg {
   static_assert(P % kKC == 0 && M2 % 64 == 0 && NB % 16 == 0, "tile");
   static_assert(Y1_BYTES % 16 == 0 && AREA_BYTES % 16 == 0, "alignment");
   static_assert(SMEM <= 232448, "shared memory");
+  static_assert(RBUF_BYTES + 1008 <= Y1_BYTES, "residual buffer");
 };
 
 // ---- PTX wrappers ---------------------------------------------------------
@@ -165,6 +171,35 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(bar)
       : "memory");
+}
+
+// TMA store of the box at (c0, c1, c2, c3) of tensor map `map` from shared
+// memory, in this thread's bulk async-group; elements outside the tensor
+// are not written.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.tile.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until this thread's bulk stores have read their shared memory
+// (READ_ONLY) or completed.
+template <bool READ_ONLY>
+__device__ __forceinline__ void tma_store_wait() {
+  if (READ_ONLY)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Generic-proxy accesses to shared memory by this thread, ordered before
+// later async-proxy ones (TMA) once the threads pass a barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned) from
@@ -331,13 +366,14 @@ __device__ __forceinline__ void release(Ring<STAGES>& ring, uint32_t empty0,
 
 template <class K>
 __global__ void __launch_bounds__(kThreads, K::MIN_BLOCKS)
-fused_bottleneck_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-                        const float* __restrict__ b1,
+fused_bottleneck_kernel(const bf16* __restrict__ w1, const float* __restrict__ b1,
                         const bf16* __restrict__ w2,
                         const float* __restrict__ b2,
                         const bf16* __restrict__ w3,
-                        const float* __restrict__ b3, bf16* __restrict__ out,
-                        const __grid_constant__ CUtensorMap xmap, int h, int w,
+                        const float* __restrict__ b3,
+                        const __grid_constant__ CUtensorMap xmap,
+                        const __grid_constant__ CUtensorMap rmap,
+                        const __grid_constant__ CUtensorMap omap, int h, int w,
                         int tiles_x, int tiles_y) {
   extern __shared__ __align__(128) unsigned char smem[];
   // weight stages, then the area (x stages in phase 1, y2 after), each
@@ -349,6 +385,7 @@ fused_bottleneck_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   uint64_t* bars = reinterpret_cast<uint64_t*>(area + K::AREA_BYTES + K::Y1_BYTES);
   const uint32_t full0 = smem_u32(bars);              // full[s] = full0 + 8s
   const uint32_t empty0 = smem_u32(bars + K::STAGES);  // empty[s]
+  const uint32_t rbar = smem_u32(bars + 2 * K::STAGES);  // phase 3's box
 
   int tile = blockIdx.x;
   const int tx = tile % tiles_x;
@@ -357,8 +394,6 @@ fused_bottleneck_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   const int img = tile / tiles_y;
   const int oy0 = ty * K::TH;
   const int ox0 = tx * K::TW;
-  const bf16* ximg = x + static_cast<size_t>(img) * h * w * K::C;
-  bf16* oimg = out + static_cast<size_t>(img) * h * w * K::C;
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -377,6 +412,7 @@ fused_bottleneck_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, kConsumerWarps);
     }
+    mbar_init(rbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -520,16 +556,31 @@ fused_bottleneck_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
         }
     }
   }
-  consumer_sync();  // y2 complete
+  fence_proxy_async();  // phase 2's reads of y1 before TMA reuses it
+  consumer_sync();      // y2 complete
 
   // ---- phase 3: out = relu(y2 . w3 + b3 + x) --------------------------------
+  // The pass's residual box comes in by TMA, the epilogue overwrites it
+  // with the output in place, and TMA stores it (clipping the image edge):
+  // NB / 64 boxes of 64 channels, M2 rows of 128 bytes with the 128-byte
+  // swizzle, in the y1 region.
   {
+    unsigned char* rbox = reinterpret_cast<unsigned char*>(y1s);
+    rbox += (1024 - (smem_u32(rbox) & 1023)) & 1023;
+    const uint32_t rbuf = smem_u32(rbox);
     uint32_t a_base[MB];
 #pragma unroll
     for (int mb = 0; mb < MB; ++mb)
       a_base[mb] = smem_u32(y2s) + (mb * 64 + m_w + a_r) * K::YS * 2 + a_k;
     for (int nt = 0; nt < K::C / K::NB; ++nt) {
       const int ntr = (nt + rot) % (K::C / K::NB);
+      if (threadIdx.x == 0) {
+        tma_store_wait<true>();  // the last pass's store has read the box
+        mbar_arrive_expect_tx(rbar, K::RBUF_BYTES);
+        for (int b = 0; b < K::NB / kKC; ++b)
+          tma_load_4d(rbuf + b * K::M2 * kRow, &rmap, ntr * K::NB + b * kKC,
+                      ox0, oy0, img, rbar);
+      }
       zero(acc);
       for (int kc = 0; kc < K::KCH3; ++kc) {
         const uint32_t a_off = (kc + rot) % K::KCH3 * kKC * 2;
@@ -551,30 +602,34 @@ fused_bottleneck_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
         pin(a);
         release(ring, empty0, lane);
       }
+      mbar_wait(rbar, nt & 1);
 #pragma unroll
       for (int mb = 0; mb < MB; ++mb)
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          const int row = mb * 64 + m_w + g + 8 * half;
-          const int oy = oy0 + row / K::TW;
-          const int ox = ox0 + row % K::TW;
-          if (oy >= h || ox >= w) continue;
-          const size_t pix = (static_cast<size_t>(oy) * w + ox) * K::C;
+          const int row = mb * 64 + m_w + g + 8 * half;  // row & 7 == g
 #pragma unroll
           for (int j = 0; j < N / 8; ++j) {
-            const int n = ntr * K::NB + wg * N + 8 * j + 2 * t;
-            const unsigned int rv =
-                __ldg(reinterpret_cast<const unsigned int*>(ximg + pix + n));
-            const __nv_bfloat162 res =
-                *reinterpret_cast<const __nv_bfloat162*>(&rv);
+            const int nl = wg * N + 8 * j;               // the pass's column
+            const int n = ntr * K::NB + nl + 2 * t;
+            unsigned char* at = rbox + (nl >> 6) * K::M2 * kRow + row * kRow +
+                                ((((nl & 63) >> 3) ^ g) << 4) + 4 * t;
+            const __nv_bfloat162 res = *reinterpret_cast<__nv_bfloat162*>(at);
             const float v0 = acc[mb][j][2 * half] + __ldg(b3 + n) + __low2float(res);
             const float v1 =
                 acc[mb][j][2 * half + 1] + __ldg(b3 + n + 1) + __high2float(res);
-            *reinterpret_cast<uint32_t*>(oimg + pix + n) =
+            *reinterpret_cast<uint32_t*>(at) =
                 pack_bf16(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
           }
         }
+      fence_proxy_async();  // the epilogue's reads and writes before TMA's
+      consumer_sync();
+      if (threadIdx.x == 0)
+        for (int b = 0; b < K::NB / kKC; ++b)
+          tma_store_4d(&omap, rbuf + b * K::M2 * kRow, ntr * K::NB + b * kKC,
+                       ox0, oy0, img);
     }
+    if (threadIdx.x == 0) tma_store_wait<false>();
   }
 }
 
@@ -618,26 +673,34 @@ int launch(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
   const int tiles_x = (w + tw - 1) / tw;
   const int tiles_y = (h + th - 1) / th;
   const unsigned blocks = static_cast<unsigned>(batch) * tiles_x * tiles_y;
-  // x as a 4-D tensor (C, W, H, batch), innermost first; the box is one
-  // 64-channel chunk of a (TH + 2) x (TW + 2) halo tile
+  // x and out as 4-D tensors (C, W, H, batch), innermost first: x's box is
+  // one 64-channel chunk of a (TH + 2) x (TW + 2) halo tile, the residual's
+  // and the output's one of a TH x TW tile
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  CUtensorMap xmap;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(K::C),
-                              static_cast<cuuint64_t>(w),
-                              static_cast<cuuint64_t>(h),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {dims[0] * 2, dims[0] * dims[1] * 2,
-                                 dims[0] * dims[1] * dims[2] * 2};
-  const cuuint32_t box[4] = {kKC, K::TW + 2, K::TH + 2, 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(x),
-             dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+  auto make_map = [&](CUtensorMap* map, const bf16* base, int box_w,
+                      int box_h) {
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(K::C),
+                                static_cast<cuuint64_t>(w),
+                                static_cast<cuuint64_t>(h),
+                                static_cast<cuuint64_t>(batch)};
+    const cuuint64_t strides[3] = {dims[0] * 2, dims[0] * dims[1] * 2,
+                                   dims[0] * dims[1] * dims[2] * 2};
+    const cuuint32_t box[4] = {kKC, static_cast<cuuint32_t>(box_w),
+                               static_cast<cuuint32_t>(box_h), 1};
+    const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                  const_cast<bf16*>(base), dims, strides, box, elem_strides,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  };
+  CUtensorMap xmap, rmap, omap;
+  if (!make_map(&xmap, x, K::TW + 2, K::TH + 2) ||
+      !make_map(&rmap, x, K::TW, K::TH) || !make_map(&omap, out, K::TW, K::TH))
     return static_cast<int>(cudaErrorInvalidValue);
   fused_bottleneck_kernel<K><<<blocks, kThreads, smem, stream>>>(
-      x, w1, b1, w2, b2, w3, b3, out, xmap, h, w, tiles_x, tiles_y);
+      w1, b1, w2, b2, w3, b3, xmap, rmap, omap, h, w, tiles_x, tiles_y);
   return static_cast<int>(cudaGetLastError());
 }
 

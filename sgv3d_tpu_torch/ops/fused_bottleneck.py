@@ -148,7 +148,8 @@ def smem_bytes(p: int, tile: tuple[int, int] | None = None,
     what follows; the ring's weight stages; one area that holds the ring's
     x stages in phase 1 (the halo rows, 128 bytes each, a stage rounded to
     1024 bytes, and room for the reads of the halo's padding to a multiple
-    of 64 rows) and y2 after; the bf16 y1 halo tile; two mbarriers a stage.
+    of 64 rows) and y2 after; the bf16 y1 halo tile (phase 3's residual
+    and output box after); two mbarriers a stage and one for that box.
     Rows of y1 and y2 are padded by 8 elements against bank conflicts."""
     th, tw = tile or tile_shape(p)
     nb, kc = ring_tile(p)
@@ -158,7 +159,7 @@ def smem_bytes(p: int, tile: tuple[int, int] | None = None,
     x_stage = -(-halo * kc * 2 // 1024) * 1024
     area = max(stages * x_stage + (m1 - halo) * kc * 2, th * tw * (p + 8) * 2)
     y1 = halo * (p + 8) * 2
-    return 1024 + area + y1 + stages * (nb * kc * 2 + 16)
+    return 1024 + area + y1 + stages * (nb * kc * 2 + 16) + 8
 
 
 def fused_bottleneck(x: torch.Tensor, fb: FoldedBottleneck) -> torch.Tensor:

@@ -49,8 +49,9 @@ _STAMPS = (
     ("  consumer_sync();  // y1 complete; every x stage consumed\n",
      "  consumer_sync();  // y1 complete; every x stage consumed\n"
      "  const unsigned long long t2 = stamp();\n"),
-    ("  consumer_sync();  // y2 complete\n",
-     "  consumer_sync();  // y2 complete\n  const unsigned long long t3 = stamp();\n"),
+    ("  consumer_sync();      // y2 complete\n",
+     "  consumer_sync();      // y2 complete\n"
+     "  const unsigned long long t3 = stamp();\n"),
     ("}\n\nusing EncodeTiled",
      "  consumer_sync();\n  if (threadIdx.x == 0 && blockIdx.x < (1 << 16)) {\n"
      "    unsigned long long* r = g_stamps[blockIdx.x];\n"
