@@ -58,8 +58,8 @@ def pack_weight(w: torch.Tensor, p: int) -> torch.Tensor:
     """A folded (N, K) weight, output channel major, -> the same shape in
     the ring's order: (N / NB, K / KC) tiles, output tile major, each tile
     NB rows of KC with the 16-byte group j of row n stored at j ^ (n % g)
-    (g = KC / 8 groups), the shared-memory layout the kernel's ldmatrix
-    loads read without bank conflicts."""
+    (g = KC / 8 groups): at KC = 64, wgmma's K-major layout with the
+    128-byte swizzle, so a ring stage is one contiguous copy."""
     nb, kc = ring_tile(p)
     n, k = w.shape
     t = w.reshape(n // nb, nb, k // kc, kc // 8, 8).permute(0, 2, 1, 3, 4)
