@@ -7,10 +7,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   1. build the CUDA kernels from `sgv3d_tpu_torch/csrc` (one nvcc a source,
      all started together; sm_90a);
   2. hold each kernel against its plain PyTorch version on the card, batch 4:
-     K1 top-k-with-cells exactly and K2 lift-splat within
-     1e-5 * max|ref| + 1e-6 and bitwise equal across two runs, at the shapes
-     of both served paths (SGV3D-r50: 18432 pixels, C = 87; r101: 4608
-     pixels, C = 80); K3 the fused identity bottleneck at ragged shapes and
+     K1 top-k-with-cells exactly (its lanes a pixel printed) and K2
+     lift-splat within 1e-5 * max|ref| + 1e-6 and bitwise equal across two
+     runs, its prep's order exactly that of `torch.sort(stable=True)` +
+     `searchsorted`, its prep and pool timed apart, in both layouts at the
+     shapes of both served paths (SGV3D-r50: 18432 pixels, C = 87; r101:
+     4608 pixels, C = 80); K3 the fused identity bottleneck at ragged shapes and
      at each r50 stage's shape, with large positive BN biases, within
      2e-2 * max|plain| and bitwise equal across two runs, timed beside the
      plain version and the unfused cuDNN block; K4 the three gathers of the
@@ -237,12 +239,49 @@ def _kernel_label(mangled: str) -> str:
     return label
 
 
+def stable_order_reference(cells: torch.Tensor, batch: int, num_cells: int):
+    """K2's prep by `torch.sort(stable=True)` and `searchsorted`: the offsets
+    of the live segments b * num_cells + cell and the order of the live
+    points, from a stable sort of the global keys b * (num_cells + 1) + cell
+    (cells in [0, num_cells]) with the trash points dropped afterwards."""
+    n, dev = cells.shape[0], cells.device
+    cams = torch.arange(n, device=dev) // (n // batch)
+    keys = (cells.long() + (cams * (num_cells + 1))[:, None, None]).reshape(-1)
+    skeys, order = torch.sort(keys, stable=True)
+    bounds = torch.searchsorted(
+        skeys, torch.arange(batch * (num_cells + 1) + 1, device=dev))
+    lens = bounds.diff().reshape(batch, num_cells + 1)[:, :num_cells].reshape(-1)
+    offsets = torch.cat([lens.new_zeros(1), lens.cumsum(0)])
+    return offsets, order[skeys % (num_cells + 1) != num_cells]
+
+
+def check_prep(height, cells, batch: int, num_cells: int, name: str) -> int:
+    """K2's prep on the card against `stable_order_reference`: the same
+    offsets and order exactly, and each slot's (row, weight) the row and
+    height of its point. Returns the live points."""
+    from sgv3d_tpu_torch.ops.lift_splat import lift_splat_prep
+
+    got = lift_splat_prep(height, cells, batch, num_cells)
+    offsets, order = stable_order_reference(cells, batch, num_cells)
+    _, j, hw = height.shape
+    rows = (order // (j * hw)) * hw + order % hw
+    if not (torch.equal(got["offsets"].long(), offsets)
+            and torch.equal(got["order"].long(), order)
+            and torch.equal(got["rows"].long(), rows)
+            and torch.equal(got["weights"], height.reshape(-1)[order])):
+        raise AssertionError(f"K2 prep ({name}) differs from torch.sort("
+                             f"stable=True) + searchsorted")
+    return order.numel()
+
+
 def phase_kernels(dev, smi) -> list[dict]:
     """K1 and K2 at the shapes of both served paths: this slice's SGV3D-r50
     (the cull keeps 18432 of 108x192 pixels, C = 80 + 7 = 87) and PR 1's
     BEVHeight-r101 (4608 of 54x96 pixels, C = 80)."""
     from sgv3d_tpu_torch.ops.lift_splat import lift_splat_forward, lift_splat_plain
-    from sgv3d_tpu_torch.ops.topk_cells import topk_cells_plain, topk_with_cells
+    from sgv3d_tpu_torch.ops.topk_cells import (
+        lanes_per_pixel, topk_cells_plain, topk_with_cells)
+    from sgv3d_tpu_torch.tools.lift_probe import k2_launchers
 
     g = torch.Generator(device=dev).manual_seed(0)
     n, d, k, num_cells = 4, 90, 16, 16384
@@ -270,6 +309,7 @@ def phase_kernels(dev, smi) -> list[dict]:
         h[:, 2::13, 5:] = float("-inf")
         cells = torch.randint(0, num_cells + 1, (n, hw, d), generator=g,
                               device=dev, dtype=torch.int32)
+        lanes = lanes_per_pixel(n * hw)
         got = topk_with_cells(h, cells, k)
         ref = topk_cells_plain(h, cells, k)
         torch.cuda.synchronize()
@@ -284,7 +324,9 @@ def phase_kernels(dev, smi) -> list[dict]:
         k1["bound_ms" + suffix], k1["bound_by" + suffix] = _bound(
             (h, cells) + tuple(got), h.numel(), PEAK_FP32_FLOPS)
         k1["shape" + suffix] = [n, hw, d, k]
-        print(f"[kernels] K1 topk_cells {path} ({n}, {hw}, {d}) k={k}: exact; "
+        k1["lanes_per_pixel" + suffix] = lanes
+        print(f"[kernels] K1 topk_cells {path} ({n}, {hw}, {d}) k={k}, {lanes} "
+              f"lanes a pixel: exact; "
               f"kernel {k1['ms' + suffix]:.4f} ms, plain "
               f"{k1['plain_ms' + suffix]:.4f} ms, torch.topk "
               f"{k1['library_ms' + suffix]:.4f} ms, bound "
@@ -301,6 +343,7 @@ def phase_kernels(dev, smi) -> list[dict]:
             trash = torch.rand(n, j, hwl, generator=g, device=dev) < 0.25
             cl = torch.where(trash, num_cells, cl).to(torch.int32)
             args = (height, ctx, cl, n, num_cells)
+            live = check_prep(height, cl, n, num_cells, f"{path}, {layout}")
             out1 = lift_splat_forward(*args)
             out2 = lift_splat_forward(*args)
             ref = lift_splat_plain(*args)
@@ -314,19 +357,24 @@ def phase_kernels(dev, smi) -> list[dict]:
                 raise AssertionError(f"K2 ({path}, {layout}) max|err| {err} > "
                                      f"{bound}")
             ms = _cuda_ms(lambda: lift_splat_forward(*args))
+            prep, pool = k2_launchers(*args)
+            prep_ms, pool_ms = _cuda_ms(prep), _cuda_ms(pool)
             plain_ms = _cuda_ms(lambda: lift_splat_plain(*args))
             k2["max_abs_err"] = max(k2["max_abs_err"], err)
             tag = suffix if layout == "top-k" else "_all_bin" + suffix
             # one multiply-add a (point, channel), on the fp32 cores
             bound_ms, bound_by = _bound((height, ctx, cl, out1),
                                         2 * height.numel() * c, PEAK_FP32_FLOPS)
-            k2.update({"ms" + tag: ms, "plain_ms" + tag: plain_ms,
+            k2.update({"ms" + tag: ms, "prep_ms" + tag: prep_ms,
+                       "pool_ms" + tag: pool_ms, "plain_ms" + tag: plain_ms,
                        "bound_ms" + tag: bound_ms, "bound_by" + tag: bound_by,
                        "shape" + tag: [n, j, hwl, c]})
             print(f"[kernels] K2 lift_splat {path} {layout} ({n}, {j}, {hwl}) x "
-                  f"C={c}: max|err| {err:.3e} <= {bound:.3e}, bitwise "
-                  f"deterministic; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"bound {bound_ms:.4f} ms ({bound_by}) ({smi})")
+                  f"C={c}: order of the {live} live points equals torch.sort("
+                  f"stable=True)'s; max|err| {err:.3e} <= {bound:.3e}, bitwise "
+                  f"deterministic; kernel {ms:.4f} ms (prep {prep_ms:.4f}, pool "
+                  f"{pool_ms:.4f}), plain {plain_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}) ({smi})")
     return [k1, k2]
 
 

@@ -26,12 +26,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points: name -> argtypes. Every function returns cudaGetLastError().
+_L = ctypes.c_longlong
+# C entry points: name -> argtypes. Every function returns cudaGetLastError()
+# (-1 for arguments it refuses).
 SIGNATURES = {
-    # (h, cells, out_vals, out_cells, rows, d, k, hw, stream)
-    "topk_cells_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # (height, context, order, offsets, out, batch, num_cells, j, hw, c, stream)
-    "lift_splat_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (h, cells, out_vals, out_cells, rows, d, k, hw, lanes, stream)
+    "topk_cells_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (height, cells, ws, ws_ints, order, batch, num_cells, n, j, hw, stream)
+    "lift_prep_launch": [_P, _P, _P, _L, _P] + [_I] * 5 + [_P],
+    # (context, ws, ws_ints, out, batch, num_cells, n, j, hw, c, stream)
+    "lift_pool_launch": [_P, _P, _L, _P] + [_I] * 6 + [_P],
+    # (height, context, cells, ws, ws_ints, out, batch, num_cells, n, j, hw,
+    #  c, stream)
+    "lift_splat_launch": [_P, _P, _P, _P, _L, _P] + [_I] * 6 + [_P],
     # (x, w1, b1, w2, b2, w3, b3, out, batch, h, w, p, th, tw, smem, stream)
     "fused_bottleneck_launch": [_P] * 8 + [_I] * 7 + [_P],
     # (ctx, idx, out, m, hw, c, stream)
@@ -114,5 +121,7 @@ def library() -> ctypes.CDLL:
 
 
 def check(err: int, name: str) -> None:
+    if err == -1:
+        raise ValueError(f"{name}: the kernel refused its arguments")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")

@@ -6,9 +6,13 @@ BEV[b, cell, :] = sum of height[n, j, p] * context[n, p, :] over the points
 of the cameras of b whose cell is `cell`; cell `num_cells` is the trash.
 
 Both layouts are (N, J, HW): J = k for the top-k lift, J = D for the
-all-bin lift. On a CUDA tensor `lift_splat_forward` sorts the keys (the
-prep) and launches `csrc/lift_splat.cu`; on a CPU tensor it runs
-`lift_splat_plain`. There is no fallback from one to the other.
+all-bin lift. The prep places every live point (cell in [0, num_cells)) in
+its slot of the order of key b * num_cells + cell, ties by flat point
+index: a stable sort's order with the trash left out, built by an LSD radix
+of RADIX_BITS-bit digits over the key range's bits. On a CUDA tensor
+`lift_splat_forward` launches `csrc/lift_splat.cu` (prep and pool); on a
+CPU tensor it runs `lift_splat_plain`, the same prep (`lift_prep_plain`)
+and sum in plain torch. There is no fallback from one to the other.
 """
 from __future__ import annotations
 
@@ -17,33 +21,134 @@ import torch
 from sgv3d_tpu_torch.ops import cuda_lib
 
 MAX_CHANNELS = 128
-D_CHUNK = 10        # bins per index_add_ in the plain version
+RADIX_BITS = 8          # csrc/lift_splat.cu: kRadixBits
+TILE = 2048             # csrc/lift_splat.cu: kTile, points a tile
+MAX_CHUNKS = 1024       # csrc/lift_splat.cu: kMaxChunks
+POOL_CHUNK = 64         # csrc/lift_splat.cu: kChunk, slots a pool warp
+POINT_CHUNK = 1 << 20   # points a gather + index_add_ in the plain version
 
 
-def _global_keys(cells: torch.Tensor, batch: int, num_cells: int) -> torch.Tensor:
-    """Offset each camera's cells by its batch element: b * (num_cells + 1)
-    + cell, so trash rows interleave per batch element."""
-    n = cells.shape[0]
-    cams = torch.arange(n, dtype=cells.dtype, device=cells.device) // (n // batch)
-    return cells + (cams * (num_cells + 1))[:, None, None]
+def key_bits(batch: int, num_cells: int) -> int:
+    """Bits of the largest key batch * num_cells - 1 (at least 1)."""
+    return max(1, (batch * num_cells - 1).bit_length())
+
+
+def lift_prep_plain(cells: torch.Tensor, batch: int,
+                    num_cells: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's prep in plain torch: (offsets (batch * num_cells + 1,),
+    order (live points,)) int64. Segment g = b * num_cells + cell holds the
+    flat point indices order[offsets[g]:offsets[g + 1]], ascending; the
+    offsets are the exclusive scan of the per-key counts, and the order is
+    placed one RADIX_BITS digit at a time from the lowest, each pass a
+    stable counting placement."""
+    flat = cells.reshape(-1).long()
+    per_b = flat.numel() // batch
+    order = torch.nonzero((flat >= 0) & (flat < num_cells)).reshape(-1)
+    keys = (order // per_b) * num_cells + flat[order]
+    counts = torch.bincount(keys, minlength=batch * num_cells)
+    offsets = torch.zeros(batch * num_cells + 1, dtype=torch.long,
+                          device=cells.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    radix = 1 << RADIX_BITS
+    for shift in range(0, key_bits(batch, num_cells), RADIX_BITS):
+        digit = (keys >> shift) & (radix - 1)
+        dcount = torch.bincount(digit, minlength=radix)
+        start = torch.cumsum(dcount, 0) - dcount
+        rank = torch.empty_like(digit)
+        for d in torch.nonzero(dcount).reshape(-1).tolist():
+            sel = digit == d
+            rank[sel] = torch.arange(int(dcount[d]), device=cells.device)
+        pos = start[digit] + rank
+        keys = torch.empty_like(keys).index_copy_(0, pos, keys)
+        order = torch.empty_like(order).index_copy_(0, pos, order)
+    return offsets, order
 
 
 def lift_splat_plain(height: torch.Tensor, context: torch.Tensor,
                      cells: torch.Tensor, batch: int,
                      num_cells: int) -> torch.Tensor:
-    """fp32 `index_add_` of height * context rows, D_CHUNK bins at a time
-    (the JAX package's XLA scatter, which bounds the live product to
-    N * D_CHUNK * HW * C)."""
+    """fp32 height * context rows of the prep's order, `index_add_`ed into
+    their cells POINT_CHUNK points at a time (bounding the live product to
+    POINT_CHUNK * C floats)."""
     n, j, hw = height.shape
     c = context.shape[-1]
-    gcell = _global_keys(cells.long(), batch, num_cells)
-    out = torch.zeros(batch * (num_cells + 1), c, dtype=torch.float32,
+    offsets, order = lift_prep_plain(cells, batch, num_cells)
+    keys = torch.repeat_interleave(
+        torch.arange(batch * num_cells, device=height.device), offsets.diff())
+    rows = (order // (j * hw)) * hw + order % hw
+    h_flat = height.reshape(-1).float()
+    ctx = context.reshape(-1, c).float()
+    out = torch.zeros(batch * num_cells, c, dtype=torch.float32,
                       device=height.device)
-    for j0 in range(0, j, D_CHUNK):
-        feats = height[:, j0:j0 + D_CHUNK, :, None].float() * context[:, None].float()
-        out.index_add_(0, gcell[:, j0:j0 + D_CHUNK].reshape(-1),
-                       feats.reshape(-1, c))
-    return out.reshape(batch, num_cells + 1, c)[:, :num_cells]
+    for s in range(0, order.numel(), POINT_CHUNK):
+        sl = slice(s, s + POINT_CHUNK)
+        out.index_add_(0, keys[sl], h_flat[order[sl], None] * ctx[rows[sl]])
+    return out.reshape(batch, num_cells, c)
+
+
+def workspace_ints(n: int, j: int, hw: int, batch: int, num_cells: int,
+                   c: int = 0) -> int:
+    """Size of the kernel's int32 workspace (`carve` in csrc/lift_splat.cu):
+    offsets and per-chunk key counts, the last pass's (row, weight) pairs
+    and keys, digit totals, the tiles' digit counts, two ping-pong buffers
+    of (key, q) pairs and, for a pool of C channels, its partial rows."""
+    p = n * j * hw
+    tiles = -(-p // TILE)
+    a_hist = (_align4(batch * num_cells + 1 + MAX_CHUNKS) + 3 * p
+              + (1 << RADIX_BITS))
+    return (_align4(a_hist + (1 << RADIX_BITS) * tiles) + 4 * p
+            + 2 * -(-p // POOL_CHUNK) * c)
+
+
+def _align4(x: int) -> int:
+    return (x + 3) // 4 * 4
+
+
+def _check(name, height, cells, batch, context=None):
+    dev = height.device
+    if dev.type != "cuda" or cells.device != dev or (
+            context is not None and context.device != dev):
+        raise ValueError(f"{name}: unsupported devices {dev}, {cells.device}"
+                         + ("" if context is None else f", {context.device}"))
+    if height.dtype != torch.float32 or cells.dtype != torch.int32 or (
+            context is not None and context.dtype != torch.float32):
+        raise TypeError(f"{name}: need float32 heights and context and int32 "
+                        f"cells; got {height.dtype}, {cells.dtype}"
+                        + ("" if context is None else f", {context.dtype}"))
+    n, j, hw = height.shape
+    if cells.shape != height.shape or n % batch or (context is not None and (
+            context.dim() != 3 or context.shape[:2] != (n, hw)
+            or context.shape[-1] > MAX_CHANNELS)):
+        raise ValueError(
+            f"{name}: bad shapes height {tuple(height.shape)}, cells "
+            f"{tuple(cells.shape)}, batch {batch}" + (
+                "" if context is None else
+                f", context {tuple(context.shape)} (C <= {MAX_CHANNELS})"))
+
+
+def lift_splat_prep(height: torch.Tensor, cells: torch.Tensor, batch: int,
+                    num_cells: int) -> dict:
+    """The kernel's prep alone, on the card (for checks and probes):
+    'offsets' (batch * num_cells + 1,) and, for the live points in slot
+    order, 'order' (flat point index), 'rows' (context row n * HW + p) and
+    'weights' (height), each int32 / float32 of that many points."""
+    _check("lift_splat_prep", height, cells, batch)
+    n, j, hw = height.shape
+    h, cl = height.contiguous(), cells.contiguous()
+    keys = batch * num_cells
+    ws = torch.empty(workspace_ints(n, j, hw, batch, num_cells),
+                     dtype=torch.int32, device=h.device)
+    order = torch.empty(n * j * hw, dtype=torch.int32, device=h.device)
+    cuda_lib.check(cuda_lib.library().lift_prep_launch(
+        h.data_ptr(), cl.data_ptr(), ws.data_ptr(), ws.numel(),
+        order.data_ptr(), batch, num_cells, n, j, hw,
+        torch.cuda.current_stream(h.device).cuda_stream), "lift_prep_launch")
+    lift_splat_prep.launches += 1
+    offsets = ws[:keys + 1]
+    live = int(offsets[-1])
+    pairs = ws[_align4(keys + 1 + MAX_CHUNKS):][:2 * live].view(live, 2)
+    return {"offsets": offsets, "order": order[:live], "rows": pairs[:, 0],
+            "weights": pairs[:, 1].view(torch.float32)}
 
 
 def lift_splat_forward(height: torch.Tensor, context: torch.Tensor,
@@ -54,37 +159,20 @@ def lift_splat_forward(height: torch.Tensor, context: torch.Tensor,
     N must be a multiple of `batch`; camera n pools into grid n // (N // B)."""
     if height.device.type == "cpu":
         return lift_splat_plain(height, context, cells, batch, num_cells)
-    dev = height.device
-    if dev.type != "cuda" or context.device != dev or cells.device != dev:
-        raise ValueError(f"lift_splat_forward: unsupported devices {dev}, "
-                         f"{context.device}, {cells.device}")
-    if (height.dtype != torch.float32 or context.dtype != torch.float32
-            or cells.dtype != torch.int32):
-        raise TypeError(f"lift_splat_forward: need float32, float32, int32; "
-                        f"got {height.dtype}, {context.dtype}, {cells.dtype}")
+    _check("lift_splat_forward", height, cells, batch, context)
     n, j, hw = height.shape
     c = context.shape[-1]
-    if (cells.shape != height.shape or context.shape != (n, hw, c)
-            or n % batch or c > MAX_CHANNELS):
-        raise ValueError(f"lift_splat_forward: bad shapes height "
-                         f"{tuple(height.shape)}, context {tuple(context.shape)}, "
-                         f"cells {tuple(cells.shape)}, batch {batch} "
-                         f"(C <= {MAX_CHANNELS})")
-    keys, order = torch.sort(_global_keys(cells, batch, num_cells).reshape(-1),
-                             stable=True)
-    bounds = torch.arange(batch * (num_cells + 1) + 1, dtype=keys.dtype,
-                          device=dev)
-    offsets = torch.searchsorted(keys, bounds)
-    h = height.contiguous()
-    ctx = context.contiguous()
-    out = torch.empty((batch, num_cells, c), dtype=torch.float32, device=dev)
-    err = cuda_lib.library().lift_splat_launch(
-        h.data_ptr(), ctx.data_ptr(), order.data_ptr(), offsets.data_ptr(),
-        out.data_ptr(), batch, num_cells, j, hw, c,
-        torch.cuda.current_stream(dev).cuda_stream)
-    cuda_lib.check(err, "lift_splat_launch")
+    h, ctx, cl = height.contiguous(), context.contiguous(), cells.contiguous()
+    ws = torch.empty(workspace_ints(n, j, hw, batch, num_cells, c),
+                     dtype=torch.int32, device=h.device)
+    out = torch.empty((batch, num_cells, c), dtype=torch.float32, device=h.device)
+    cuda_lib.check(cuda_lib.library().lift_splat_launch(
+        h.data_ptr(), ctx.data_ptr(), cl.data_ptr(), ws.data_ptr(), ws.numel(),
+        out.data_ptr(), batch, num_cells, n, j, hw, c,
+        torch.cuda.current_stream(h.device).cuda_stream), "lift_splat_launch")
     lift_splat_forward.launches += 1
     return out
 
 
 lift_splat_forward.launches = 0
+lift_splat_prep.launches = 0

@@ -11,8 +11,9 @@ import torch
 
 from sgv3d_tpu_torch.ops import cuda_lib
 
-MAX_BINS = 256      # 8 register slots a lane
-MAX_K = 32          # lane r keeps round r's pick
+MAX_BINS = 256      # a block's rows of heights in shared memory
+MAX_K = 32          # the longest register-resident list a lane keeps
+LANES = (1, 2, 4, 8)
 
 
 def topk_cells_plain(height_hwd: torch.Tensor, cell_hwd: torch.Tensor,
@@ -25,10 +26,19 @@ def topk_cells_plain(height_hwd: torch.Tensor, cell_hwd: torch.Tensor,
             cells.transpose(1, 2).contiguous())
 
 
+def lanes_per_pixel(rows: int) -> int:
+    """Lanes that share a row: two from 32768 rows up (SGV3D-r50's 73728),
+    else four (r101's 18432), the fastest of LANES at those two shapes in
+    `tools/lift_probe.py`'s timing on an H100."""
+    return 2 if rows >= 32768 else 4
+
+
 def topk_with_cells(height_hwd: torch.Tensor, cell_hwd: torch.Tensor,
-                    k: int) -> tuple[torch.Tensor, torch.Tensor]:
+                    k: int, lanes: int | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """height_hwd (N, HW, D) float32, cell_hwd (N, HW, D) int32 ->
-    (vals (N, k, HW) float32 descending, cells (N, k, HW) int32)."""
+    (vals (N, k, HW) float32 descending, cells (N, k, HW) int32). `lanes`
+    (one of LANES) overrides `lanes_per_pixel` on the card."""
     if height_hwd.device.type == "cpu":
         return topk_cells_plain(height_hwd, cell_hwd, k)
     if height_hwd.device.type != "cuda" or cell_hwd.device != height_hwd.device:
@@ -44,13 +54,18 @@ def topk_with_cells(height_hwd: torch.Tensor, cell_hwd: torch.Tensor,
     if d > MAX_BINS or not 0 < k <= min(d, MAX_K):
         raise ValueError(f"topk_with_cells: need D <= {MAX_BINS} and "
                          f"0 < k <= min(D, {MAX_K}); got D={d}, k={k}")
+    lanes = lanes_per_pixel(n * hw) if lanes is None else lanes
+    if lanes not in LANES:
+        raise ValueError(f"topk_with_cells: lanes {lanes} not in {LANES}")
     h = height_hwd.contiguous()
+    if h.data_ptr() % 16:       # the kernel's bulk copy needs 16 bytes
+        h = h.clone()
     c = cell_hwd.contiguous()
     vals = torch.empty((n, k, hw), dtype=torch.float32, device=h.device)
     cells = torch.empty((n, k, hw), dtype=torch.int32, device=h.device)
     err = cuda_lib.library().topk_cells_launch(
         h.data_ptr(), c.data_ptr(), vals.data_ptr(), cells.data_ptr(),
-        n * hw, d, k, hw, torch.cuda.current_stream(h.device).cuda_stream)
+        n * hw, d, k, hw, lanes, torch.cuda.current_stream(h.device).cuda_stream)
     cuda_lib.check(err, "topk_cells_launch")
     topk_with_cells.launches += 1
     return vals, cells

@@ -3,19 +3,25 @@
 
     python -m sgv3d_tpu_torch.tools.lift_probe
 
-Times with CUDA events (mean of 20 calls after a warm-up) K1 and K2, and
-K2 split into its parts: the global keys, the stable `torch.sort`, the
-`arange` + `searchsorted` of the segment bounds, and the pool kernel. Two
-kinds of cells: uniform ones with a quarter in the trash cell (the inputs
+Times with CUDA events (mean of 20 calls after a warm-up) K1 at each
+number of lanes a pixel (`topk_cells.LANES`, the kernel's own choice
+marked), and K2 whole and split into its prep (the key placement) and its
+pool, each launched alone, with each kernel's device time from
+`torch.profiler`; then K2 built with other tile and chunk sizes
+(`VARIANTS`, copies of the source in `build/lift_probe/`), each held
+against the kernel as it is. Two kinds of cells: uniform ones with a quarter in the trash cell (the inputs
 of `chip_smoke.py`), and the cells of each exp's own synthetic rig after
 the pixel cull (skewed: near cells dense, far cells empty), with K1's
 top-k of seeded softmax heights feeding K2. It needs an NVIDIA GPU.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import re
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -24,11 +30,18 @@ from sgv3d_tpu_torch.configs import get_exp
 from sgv3d_tpu_torch.data.synthetic import make_batch
 from sgv3d_tpu_torch.nn.lss_fpn import compute_lift_cells, compute_valid_pixels
 from sgv3d_tpu_torch.ops import cuda_lib
-from sgv3d_tpu_torch.ops.lift_splat import _global_keys, lift_splat_forward
-from sgv3d_tpu_torch.ops.topk_cells import topk_with_cells
+from sgv3d_tpu_torch.ops.lift_splat import lift_splat_forward, workspace_ints
+from sgv3d_tpu_torch.ops.topk_cells import LANES, lanes_per_pixel, topk_with_cells
 from sgv3d_tpu_torch.ops.voxel_pooling import apply_pixel_cull, cull_pixel_indices
 
 BATCH = 4
+# constants of csrc/lift_splat.cu set to other values, to time beside the
+# source's own: points a lane in a prep tile, slots a pool warp, context
+# rows in flight
+VARIANTS = ({"kItems": 8}, {"kItems": 4}, {"kChunk": 32, "kUnroll": 2},
+            {"kChunk": 32, "kUnroll": 1}, {"kChunk": 64, "kUnroll": 2},
+            {"kChunk": 16, "kUnroll": 2})
+OUT = cuda_lib.BUILD_ROOT.parent / "lift_probe"
 # exp, context channels into the lift
 EXPS = (("sgv3d_r50_128", 87), ("bevheight_dair_r101_128", 80))
 
@@ -66,49 +79,163 @@ def rig_cells(cfg, dev) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _segments(cells: torch.Tensor, batch: int, num_cells: int) -> str:
-    keys = _global_keys(cells.long(), batch, num_cells).reshape(-1)
-    counts = torch.bincount(keys, minlength=batch * (num_cells + 1))
-    counts = counts.reshape(batch, num_cells + 1)
-    live = counts[:, :num_cells]
-    trash = float(counts[:, num_cells].sum()) / cells.numel()
-    return (f"trash share {trash:.3f}, non-empty cells "
-            f"{int((live > 0).sum())} of {live.numel()}, points a non-empty "
-            f"cell mean {float(live.sum()) / max(int((live > 0).sum()), 1):.1f}"
-            f" max {int(live.max())}")
+    n = cells.shape[0]
+    cams = torch.arange(n, device=cells.device) // (n // batch)
+    live = cells < num_cells
+    keys = (cells.long() + (cams * num_cells)[:, None, None])[live]
+    counts = torch.bincount(keys, minlength=batch * num_cells)
+    busy = int((counts > 0).sum())
+    return (f"trash share {1 - float(live.float().mean()):.3f}, non-empty "
+            f"cells {busy} of {counts.numel()}, points a non-empty cell mean "
+            f"{float(counts.sum()) / max(busy, 1):.1f} max {int(counts.max())}")
 
 
-def k2_split(height, ctx, cells, batch, num_cells) -> dict:
-    """K2's wrapper step by step, each step timed on its own."""
-    dev = height.device
+def k2_launchers(height, ctx, cells, batch: int, num_cells: int):
+    """Closures that launch K2's prep alone and its pool alone (over the
+    prep's workspace), uncounted and without a sync, for timing."""
     n, j, hw = height.shape
     c = ctx.shape[-1]
-    keys = _global_keys(cells, batch, num_cells).reshape(-1)
-    skeys, order = torch.sort(keys, stable=True)
-    bounds = torch.arange(batch * (num_cells + 1) + 1, dtype=skeys.dtype,
-                          device=dev)
-    offsets = torch.searchsorted(skeys, bounds)
+    dev = height.device
+    ws = torch.empty(workspace_ints(n, j, hw, batch, num_cells, c),
+                     dtype=torch.int32, device=dev)
     out = torch.empty((batch, num_cells, c), dtype=torch.float32, device=dev)
     lib = cuda_lib.library()
 
+    def prep():
+        cuda_lib.check(lib.lift_prep_launch(
+            height.data_ptr(), cells.data_ptr(), ws.data_ptr(), ws.numel(),
+            None, batch, num_cells, n, j, hw,
+            torch.cuda.current_stream(dev).cuda_stream), "lift_prep_launch")
+
     def pool():
-        cuda_lib.check(lib.lift_splat_launch(
-            height.data_ptr(), ctx.data_ptr(), order.data_ptr(),
-            offsets.data_ptr(), out.data_ptr(), batch, num_cells, j, hw, c,
-            torch.cuda.current_stream(dev).cuda_stream), "lift_splat_launch")
+        cuda_lib.check(lib.lift_pool_launch(
+            ctx.data_ptr(), ws.data_ptr(), ws.numel(), out.data_ptr(), batch,
+            num_cells, n, j, hw, c, torch.cuda.current_stream(dev).cuda_stream),
+            "lift_pool_launch")
 
-    def search():
-        b = torch.arange(batch * (num_cells + 1) + 1, dtype=skeys.dtype,
-                         device=dev)
-        return torch.searchsorted(skeys, b)
+    prep()
+    return prep, pool
 
-    return {
-        "global_keys": _cuda_ms(lambda: _global_keys(cells, batch, num_cells)),
-        "sort": _cuda_ms(lambda: torch.sort(keys, stable=True)),
-        "arange_searchsorted": _cuda_ms(search),
-        "pool": _cuda_ms(pool),
-        "total": _cuda_ms(lambda: lift_splat_forward(height, ctx, cells, batch,
-                                                     num_cells)),
-    }
+
+def kernel_us(fn, iters: int = 10) -> dict:
+    """Device time of each kernel (and memset) that `fn` launches, in us a
+    call, from `torch.profiler` over `iters` calls."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us > 0:
+            m = re.search(r"(\w+)(<[^()]*>)?\(", evt.key)
+            out[m.group(1) + (m.group(2) or "") if m else evt.key[:32]] = us / iters
+    return out
+
+
+def host_us(fn, iters: int = 20) -> float:
+    """Host time to enqueue one call of `fn`, in us (no sync inside)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
+def k2_split(height, ctx, cells, batch, num_cells) -> dict:
+    prep, pool = k2_launchers(height, ctx, cells, batch, num_cells)
+    return {"prep": _cuda_ms(prep), "pool": _cuda_ms(pool),
+            "total": _cuda_ms(lambda: lift_splat_forward(height, ctx, cells, batch,
+                                                         num_cells))}
+
+
+def _warm_up(dev) -> None:
+    """About a second of back-to-back work, so the first timing does not
+    read a card still raising its clocks."""
+    a = torch.randn(4096, 4096, device=dev)
+    for _ in range(200):
+        a = a @ a
+        a = a / a.abs().max()
+    torch.cuda.synchronize()
+
+
+def _variant_name(over: dict) -> str:
+    return "_".join(f"{k}{v}" for k, v in over.items())
+
+
+def build_variants() -> dict:
+    """One nvcc a variant of csrc/lift_splat.cu (VARIANTS: constants set
+    to other values), all started together -> name: ctypes library."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    src = (cuda_lib.CSRC / "lift_splat.cu").read_text()
+    procs = {}
+    for over in VARIANTS:
+        text = src
+        for const, value in over.items():
+            text, n = re.subn(rf"constexpr int {const} = \d+;",
+                              f"constexpr int {const} = {value};", text)
+            if n != 1:
+                raise RuntimeError(f"lift_probe: no constant {const} to set")
+        name = _variant_name(over)
+        (OUT / f"{name}.cu").write_text(text)
+        procs[name] = subprocess.Popen(
+            [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o", str(OUT / f"{name}.so"),
+             str(OUT / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"lift_probe: nvcc failed for {name}:\n{log}")
+        lib = ctypes.CDLL(str(OUT / f"{name}.so"))
+        for fn in ("lift_prep_launch", "lift_pool_launch"):
+            getattr(lib, fn).argtypes = cuda_lib.SIGNATURES[fn]
+        libs[name] = lib
+    return libs
+
+
+def variants(libs, height, ctx, cells, batch, num_cells) -> str:
+    """Each variant's prep and pool time; its output is held against the
+    kernel's (within K2's tolerance, bitwise where the sum order is the
+    same)."""
+    n, j, hw = height.shape
+    c = ctx.shape[-1]
+    dev = height.device
+    ref = lift_splat_forward(height, ctx, cells, batch, num_cells)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    parts = []
+    for name, lib in libs.items():
+        # room for the smallest tiles and pool chunks of any variant
+        ws = torch.empty(2 * workspace_ints(n, j, hw, batch, num_cells, c)
+                         + n * j * hw * c, dtype=torch.int32, device=dev)
+        out = torch.empty_like(ref)
+
+        def prep():
+            cuda_lib.check(lib.lift_prep_launch(
+                height.data_ptr(), cells.data_ptr(), ws.data_ptr(), ws.numel(),
+                None, batch, num_cells, n, j, hw, stream), "lift_prep_launch")
+
+        def pool():
+            cuda_lib.check(lib.lift_pool_launch(
+                ctx.data_ptr(), ws.data_ptr(), ws.numel(), out.data_ptr(), batch,
+                num_cells, n, j, hw, c, stream), "lift_pool_launch")
+
+        prep_ms = _cuda_ms(prep)
+        pool_ms = _cuda_ms(pool)
+        if not float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max()) + 1e-6:
+            raise AssertionError(f"lift_probe: variant {name} disagrees with the "
+                                 f"kernel")
+        same = "bitwise" if torch.equal(out, ref) else "within 1e-5"
+        parts.append(f"{name}: prep {prep_ms:.4f} pool {pool_ms:.4f} ({same})")
+    return "variants, ms: " + ", ".join(parts)
 
 
 def _line(label: str, parts: dict) -> str:
@@ -123,6 +250,8 @@ def run(dev) -> list[str]:
         print(line, flush=True)
 
     g = torch.Generator(device=dev).manual_seed(0)
+    libs = build_variants()
+    _warm_up(dev)
     for exp, c in EXPS:
         cfg = get_exp(exp)
         d, k = cfg.backbone.num_height_bins, cfg.backbone.lift_top_k
@@ -140,10 +269,20 @@ def run(dev) -> list[str]:
         h_hwd = torch.softmax(torch.randn(n, hw, d, generator=g, device=dev) * 3, -1)
         cells_hwd = torch.randint(0, num_cells + 1, (n, hw, d), generator=g,
                                   device=dev, dtype=torch.int32)
-        ms = _cuda_ms(lambda: topk_with_cells(h_hwd, cells_hwd, k))
-        emit(f"{exp} K1 ({n}, {hw}, {d}) k={k} uniform cells: {ms:.4f} ms")
-        ms = _cuda_ms(lambda: topk_with_cells(h_hwd, top_cells, k))
-        emit(f"{exp} K1 ({n}, {hw}, {d}) k={k} rig cells: {ms:.4f} ms")
+        for kind, cl in (("uniform", cells_hwd), ("rig", top_cells)):
+            ms = {lanes: _cuda_ms(lambda: topk_with_cells(h_hwd, cl, k, lanes))
+                  for lanes in LANES}
+            own = lanes_per_pixel(n * hw)
+            dev_us = {lanes: sum(kernel_us(
+                lambda: topk_with_cells(h_hwd, cl, k, lanes)).values())
+                for lanes in LANES}
+            emit(f"{exp} K1 ({n}, {hw}, {d}) k={k} {kind} cells, by lanes a "
+                 f"pixel, ms (device us): " + ", ".join(
+                     f"{lanes}: {t:.4f} ({dev_us[lanes]:.1f})" + (
+                         " (own)" if lanes == own else "")
+                     for lanes, t in ms.items())
+                 + f"; host enqueue {host_us(lambda: topk_with_cells(h_hwd, cl, k)):.1f}"
+                 f" us a call")
         vals, rig_top = topk_with_cells(h_hwd, top_cells, k)
         for layout, jj, hwl, rig in (("top-k", k, hw, rig_top),
                                      ("all-bin", d, hw_all, all_cells)):
@@ -154,8 +293,14 @@ def run(dev) -> list[str]:
             for kind, cl in (("uniform", uni[layout]), ("rig", rig)):
                 label = f"{exp} K2 {layout} ({n}, {jj}, {hwl}) x C={c} {kind} cells"
                 emit(f"{label}: {_segments(cl, BATCH, num_cells)}")
-                emit(_line(label, k2_split(
-                    height.contiguous(), ctx, cl.contiguous(), BATCH, num_cells)))
+                args = (height.contiguous(), ctx, cl.contiguous(), BATCH, num_cells)
+                emit(_line(label, k2_split(*args)))
+                fwd = lambda: lift_splat_forward(*args)  # noqa: E731
+                per = kernel_us(fwd)
+                emit(f"{label}: device us a call by kernel: " + ", ".join(
+                    f"{k} {v:.1f}" for k, v in per.items())
+                     + f"; host enqueue {host_us(fwd):.1f} us a call")
+                emit(f"{label}: {variants(libs, *args)}")
     return lines
 
 

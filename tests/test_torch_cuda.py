@@ -4,7 +4,8 @@ Imports no jax, so it runs on a machine with a card and no jax:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 Here, without a card, every test skips (the `cuda_device` fixture decides
 at run time). K1 must be exact; K2 within 1e-5 * max|ref| + 1e-6 (the sums
-run in another order than `index_add_`) and bitwise equal across runs; K3
+run in another order than `index_add_`) and bitwise equal across runs, its
+prep's order exactly that of `torch.sort(stable=True)`; K3
 within 2e-2 * max|plain| (y1 and y2 rounded to bf16 after sums in another
 order) and bitwise equal across runs, its padding exact; K4 exact.
 """
@@ -15,8 +16,9 @@ import torch
 import chip_smoke
 from sgv3d_tpu_torch.ops.fused_bottleneck import (
     FoldedBottleneck, fused_bottleneck, fused_bottleneck_plain)
-from sgv3d_tpu_torch.ops.lift_splat import lift_splat_forward, lift_splat_plain
-from sgv3d_tpu_torch.ops.topk_cells import topk_cells_plain, topk_with_cells
+from sgv3d_tpu_torch.ops.lift_splat import (
+    lift_splat_forward, lift_splat_plain, lift_splat_prep)
+from sgv3d_tpu_torch.ops.topk_cells import LANES, topk_cells_plain, topk_with_cells
 from sgv3d_tpu_torch.tools import spike_gather
 
 pytestmark = pytest.mark.cuda
@@ -71,6 +73,74 @@ def test_lift_splat_kernel_matches_plain(cuda_device, j, hw, c, batch, n):
     assert float((a - ref).abs().max()) <= 1e-5 * float(ref.abs().max()) + 1e-6
     trash = torch.full_like(cells, num_cells)
     assert not lift_splat_forward(height, ctx, trash, batch, num_cells).any()
+
+
+@pytest.mark.parametrize("kind,d,k", [("ascending", 90, 16), ("normal", 90, 1),
+                                      ("normal", 33, 32), ("ties", 90, 16)])
+def test_topk_kernel_exact_at_every_lane_count(cuda_device, kind, d, k):
+    """Heights ascending along D (every bin inserts), k = 1, k = 32 of 33
+    bins, and exact ties with -inf rows, at every lane count."""
+    g = torch.Generator(device=cuda_device).manual_seed(d + k)
+    h = torch.randn(2, 301, d, generator=g, device=cuda_device)
+    if kind == "ascending":
+        h = h.sort(dim=-1).values
+    elif kind == "ties":
+        h = torch.randint(0, 3, h.shape, generator=g, device=cuda_device).float()
+        h[:, 1::5, d // 3:] = float("-inf")
+    cells = torch.randint(0, 16385, h.shape, generator=g, device=cuda_device,
+                          dtype=torch.int32)
+    ref = topk_cells_plain(h, cells, k)
+    for lanes in LANES:
+        got = topk_with_cells(h, cells, k, lanes=lanes)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), lanes
+
+
+@pytest.mark.parametrize("batch,num_cells,n,j,hw", [
+    (4, 16384, 4, 16, 18432),       # the SGV3D top-k shape: 16-bit keys
+    (4, 16384, 4, 90, 5184),        # r101 all-bin
+    (16, 65536, 16, 2, 4096),       # 20-bit keys: three passes
+    (32, 65536, 32, 2, 1024),       # 21-bit keys
+    (2, 48, 4, 3, 256)])            # one pass
+def test_lift_prep_order_matches_stable_sort(cuda_device, batch, num_cells, n,
+                                             j, hw):
+    g = torch.Generator(device=cuda_device).manual_seed(n * j)
+    height = torch.rand(n, j, hw, generator=g, device=cuda_device)
+    cells = torch.randint(0, num_cells, (n, j, hw), generator=g,
+                          device=cuda_device, dtype=torch.int32)
+    trash = torch.rand(n, j, hw, generator=g, device=cuda_device) < 0.25
+    cells = torch.where(trash, num_cells, cells).to(torch.int32)
+    cells[-(n // batch):] = num_cells               # an empty batch element
+    before = lift_splat_prep.launches
+    chip_smoke.check_prep(height, cells, batch, num_cells, "test")
+    assert lift_splat_prep.launches == before + 1
+
+
+@pytest.mark.parametrize("batch,num_cells,n,j,hw", [
+    (1, 16384, 1, 1, 100_000),      # one hot cell of 100k points
+    (32, 65536, 32, 2, 1024)])      # 21-bit keys
+def test_lift_splat_bitwise_deterministic(cuda_device, batch, num_cells, n, j,
+                                          hw):
+    g = torch.Generator(device=cuda_device).manual_seed(hw)
+    height = torch.rand(n, j, hw, generator=g, device=cuda_device)
+    ctx = torch.randn(n, hw, 80, generator=g, device=cuda_device)
+    if n == 1:
+        cells = torch.full((n, j, hw), 77, dtype=torch.int32, device=cuda_device)
+    else:
+        cells = torch.randint(0, num_cells + 1, (n, j, hw), generator=g,
+                              device=cuda_device, dtype=torch.int32)
+    args = (height, ctx, cells, batch, num_cells)
+    a, b = lift_splat_forward(*args), lift_splat_forward(*args)
+    assert torch.equal(a, b)
+    if n > 1:
+        ref = lift_splat_plain(*args)
+        assert float((a - ref).abs().max()) <= 1e-5 * float(ref.abs().max()) + 1e-6
+        return
+    # one float32 sum of 1e5 terms: within n * 2^-24 * sum|term| of the
+    # float64 sum (the worst case of any summation order)
+    terms = height.reshape(-1, 1).double() * ctx[0].double()
+    err = (a[0, 77].double() - terms.sum(0)).abs()
+    assert bool((err <= hw * 2.0 ** -24 * terms.abs().sum(0)).all())
+    assert not a[0, :77].any() and not a[0, 78:].any()
 
 
 def test_tiny_predictor_card_matches_cpu(cuda_device):

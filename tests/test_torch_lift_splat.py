@@ -11,8 +11,10 @@ import pytest
 import torch
 
 import sgv3d_tpu.ops.pallas_lift_splat as pls
+from chip_smoke import stable_order_reference
 from sgv3d_tpu.ops.voxel_pooling import lift_splat_pool
-from sgv3d_tpu_torch.ops.lift_splat import lift_splat_forward, lift_splat_plain
+from sgv3d_tpu_torch.ops.lift_splat import (
+    key_bits, lift_prep_plain, lift_splat_forward, lift_splat_plain)
 
 
 @pytest.fixture
@@ -59,6 +61,17 @@ CASES = {
     "all_trash": (1, 2, 512, 8, 32, 1, lambda r, s: np.full(s, 32)),
     "one_hot_cell": (1, 3, 512, 8, 64, 1, lambda r, s: np.zeros(s, np.int64)),
     "multi_camera": (4, 3, 256, 8, 48, 2, lambda r, s: r.integers(0, 49, size=s)),
+    # batch element 1's two cameras all in the trash cell
+    "empty_batch_element": (4, 3, 256, 8, 48, 2, lambda r, s: np.where(
+        np.arange(s[0])[:, None, None] >= 2, 48, r.integers(0, 49, size=s))),
+}
+# prep-only cases: 20-bit keys (three radix passes) and a hot cell among
+# uniform ones, beside the skewed CASES
+PREP_CASES = {
+    "wide_keys": (16, 2, 256, 65536, 16,
+                  lambda r, s: r.integers(0, 65537, size=s)),
+    "hot_cell": (2, 16, 512, 1024, 2, lambda r, s: np.where(
+        r.random(s) < 0.5, 7, r.integers(0, 1025, size=s))),
 }
 
 
@@ -72,6 +85,22 @@ def test_plain_matches_pallas_kernel(rng, _interpret, name):
     np.testing.assert_allclose(got, ref, atol=6e-3 * max(1.0, np.abs(ref).max()))
     if name == "all_trash":
         assert not got.any()
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + sorted(PREP_CASES))
+def test_prep_plain_matches_stable_sort(rng, name):
+    """The radix prep's offsets and order equal the stable sort's exactly."""
+    if name in CASES:
+        n, j, hw, _, cells, batch, gen = CASES[name]
+    else:
+        n, j, hw, cells, batch, gen = PREP_CASES[name]
+    cell = torch.from_numpy(np.asarray(gen(rng, (n, j, hw)), np.int32))
+    offsets, order = lift_prep_plain(cell, batch, cells)
+    ref_offsets, ref_order = stable_order_reference(cell, batch, cells)
+    assert torch.equal(offsets, ref_offsets)
+    assert torch.equal(order, ref_order)
+    if name == "wide_keys":
+        assert key_bits(batch, cells) == 20        # three 8-bit passes
 
 
 def test_plain_is_deterministic_and_the_cpu_wrapper(rng):

@@ -18,16 +18,22 @@ def _inputs(rng, kind, n=2, hw=700, d=90):
     # hw = 700 is no multiple of the Pallas kernel's 512-row tile
     if kind == "normal":
         h = rng.normal(size=(n, hw, d))
+    elif kind == "ascending":   # every bin beats the ones before it
+        h = np.sort(rng.normal(size=(n, hw, d)), axis=-1)
     else:       # quantised: most rows hold many exact ties
         h = rng.integers(0, 5, size=(n, hw, d)) / 4.0
     cells = rng.integers(0, 16385, size=(n, hw, d))
     return h.astype(np.float32), cells.astype(np.int32)
 
 
-@pytest.mark.parametrize("kind", ["normal", "ties"])
-def test_plain_matches_pallas_and_lax(rng, kind):
-    h, c = _inputs(rng, kind)
-    k = 16
+@pytest.mark.parametrize("kind,d,k", [
+    pytest.param("normal", 90, 16, id="normal"),
+    pytest.param("ties", 90, 16, id="ties"),
+    pytest.param("ascending", 90, 16, id="ascending"),   # the insertion's worst case
+    pytest.param("normal", 90, 1, id="k1"),
+    pytest.param("normal", 33, 32, id="k32_d33")])
+def test_plain_matches_pallas_and_lax(rng, kind, d, k):
+    h, c = _inputs(rng, kind, d=d)
     v_port, c_port = topk_cells_plain(torch.from_numpy(h), torch.from_numpy(c), k)
     v_pl, c_pl = pallas_topk_with_cells(jnp.asarray(h), jnp.asarray(c), k, True)
     v_lax, c_lax = jax_topk(jnp.asarray(h), jnp.asarray(c), k, "exact")
