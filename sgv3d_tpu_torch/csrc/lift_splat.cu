@@ -1,5 +1,5 @@
 // Lift-splat BEV pooling forward: a deterministic key placement (the prep)
-// and a segment sum over it (the pool), one warp per BEV cell.
+// and a segment sum over it (the pool).
 //
 // Replaces the TPU kernel sgv3d_tpu/ops/pallas_lift_splat.py
 // (`pallas_sorted_segment_pool`, body `_kernel`, fed by the sort in
@@ -32,10 +32,11 @@
 //      warp in point order (lanes of one digit found by a ballot a digit
 //      bit, per-warp digit counts in shared memory, then a scan over the
 //      warps), stages the tile in shared memory in digit order and
-//      writes each digit's run to digit base + tile base, coalesced. A later pass (steps 1-3 on
-//      the placed (key, q) pairs, `tile_hist_kernel<false>` counting) reads
-//      what the last one wrote. The last pass writes each point's (context
-//      row, weight) pair into its slot.
+//      writes each digit's run to digit base + tile base, coalesced.
+// A later pass (steps 1-3 on the placed (key, q) pairs, with
+// `tile_hist_kernel<false>` counting) reads what the last one wrote; each
+// point's height rides along from pass 0's coalesced read. The last pass
+// writes each point's (context row, weight) pair and its key into its slot.
 // The pool gives each warp kChunk consecutive slots, whatever the segments
 // (near cells of a real rig hold hundreds of points, far ones none): one
 // coalesced load of 32 (row, weight) pairs and keys, then kUnroll context
@@ -241,9 +242,10 @@ scan_kernel(int* __restrict__ hist, int tiles, int* __restrict__ totals,
   if (lo + n == num_keys && threadIdx.x == 0) offsets[num_keys] = end;
 }
 
-// One pass's placement of a tile. Not the last pass: out[pos] = (key, q).
-// The last: out[pos] = (context row, weight bits), keys_out[pos] = key and,
-// if `order` is not null, order[pos] = q. The tile's items are staged in
+// One pass's placement of a tile; weights[i] is item i's weight (pass 0:
+// the height of point i). Not the last pass: out[pos] = (key, q) and
+// w_out[pos] = its weight. The last: out[pos] = (context row, weight bits),
+// keys_out[pos] = key and, if `order` is not null, order[pos] = q. The tile's items are staged in
 // shared memory in digit order first, so that each digit's run goes out
 // coalesced.
 template <bool kPoints, bool kLast>
@@ -251,17 +253,18 @@ __global__ void __launch_bounds__(kThreads)
 place_kernel(const int* __restrict__ cells, const int2* __restrict__ items,
              const int* __restrict__ m_ptr, Geo g, int shift,
              const int* __restrict__ hist, const int* __restrict__ totals,
-             int tiles, const float* __restrict__ height,
-             int2* __restrict__ out, int* __restrict__ keys_out,
-             int* __restrict__ order) {
+             int tiles, const float* __restrict__ weights,
+             int2* __restrict__ out, float* __restrict__ w_out,
+             int* __restrict__ keys_out, int* __restrict__ order) {
   __shared__ int s_off[kRadix];          // the digit's first slot, globally
   __shared__ int s_start[kRadix];        // the digit's first slot in the tile
   __shared__ int s_cnt[kWarps][kRadix];  // a warp's digit counts, then starts
   __shared__ int s_warp[32];
   extern __shared__ __align__(16) unsigned char smem[];
   int2* s_items = reinterpret_cast<int2*>(smem);           // the tile in digit order
-  int* s_keys = reinterpret_cast<int*>(s_items + kTile);   // the last pass only
-  unsigned char* s_digit = smem + kTile * (kLast ? 12 : 8);
+  float* s_w = reinterpret_cast<float*>(s_items + kTile);
+  int* s_keys = reinterpret_cast<int*>(s_w + kTile);        // the last pass only
+  unsigned char* s_digit = smem + kTile * (kLast ? 16 : 12);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int d = threadIdx.x;  // this thread's digit in the per-digit steps
@@ -310,14 +313,15 @@ place_kernel(const int* __restrict__ cells, const int2* __restrict__ items,
   for (int it = 0; it < kItems; ++it) {
     if (ranked[it] < 0) continue;
     int key, q;
-    load_item<kPoints>(cells, items, g, m, base + it * 32 + lane, key, q);
+    const int i = base + it * 32 + lane;
+    load_item<kPoints>(cells, items, g, m, i, key, q);
     const int digit = ranked[it] & (kRadix - 1);
     const int local = s_start[digit] + s_cnt[warp][digit] + (ranked[it] >> kRadixBits);
     s_digit[local] = static_cast<unsigned char>(digit);
+    s_w[local] = weights[i];
     if (kLast) {
       const int n = q / g.per_cam;
-      const int row = n * g.hw + (q - n * g.per_cam) % g.hw;
-      s_items[local] = make_int2(row, __float_as_int(__ldg(height + q)));
+      s_items[local] = make_int2(n * g.hw + (q - n * g.per_cam) % g.hw, 0);
       s_keys[local] = key;
       if (order != nullptr) order[s_off[digit] + local - s_start[digit]] = q;
     } else {
@@ -328,8 +332,13 @@ place_kernel(const int* __restrict__ cells, const int2* __restrict__ items,
   for (int l = threadIdx.x; l < tile_live; l += kThreads) {
     const int digit = s_digit[l];
     const int pos = s_off[digit] + l - s_start[digit];
-    out[pos] = s_items[l];
-    if (kLast) keys_out[pos] = s_keys[l];
+    if (kLast) {
+      out[pos] = make_int2(s_items[l].x, __float_as_int(s_w[l]));
+      keys_out[pos] = s_keys[l];
+    } else {
+      out[pos] = s_items[l];
+      w_out[pos] = s_w[l];
+    }
   }
 }
 
@@ -455,8 +464,8 @@ int64_t pool_chunks(int64_t p) { return (p + kChunk - 1) / kChunk; }
 // The workspace, in ints: offsets [R + 1] and per-chunk key counts
 // [kMaxChunks]; the last pass's (row, weight) pairs [2P] (16-byte aligned)
 // and keys [P]; digit totals [kRadix]; tile digit counts [kRadix * tiles];
-// two ping-pong buffers of (key, q) pairs [2P each] (16-byte aligned); the
-// pool's partial rows [2 C a pool chunk].
+// two ping-pong buffers of (key, q) pairs [2P each] (16-byte aligned) and
+// of their weights [P each]; the pool's partial rows [2 C a pool chunk].
 struct Workspace {
   int* offsets;
   int* chunks;
@@ -465,56 +474,62 @@ struct Workspace {
   int* totals;
   int* hist;
   int2* buf[2];
+  float* wbuf[2];
   float* partials;
 };
 
-bool carve(int* ws, int64_t ws_ints, int64_t num_keys, int64_t p, int tiles,
-           int c, Workspace* w) {
+// Lays the workspace out in `w`, when `ws` is not null, and returns its
+// size in ints.
+int64_t carve(int* ws, int64_t num_keys, int64_t p, int tiles, int c,
+              Workspace* w) {
   const int64_t a_pairs = align4(num_keys + 1 + kMaxChunks);
   const int64_t a_keys = a_pairs + 2 * p;
   const int64_t a_totals = a_keys + p;
   const int64_t a_hist = a_totals + kRadix;
   const int64_t a_buf = align4(a_hist + int64_t{kRadix} * tiles);
-  const int64_t a_part = a_buf + 4 * p;
-  if (a_part + 2 * pool_chunks(p) * c > ws_ints) return false;
-  w->offsets = ws;
-  w->chunks = ws + num_keys + 1;
-  w->pairs = reinterpret_cast<int2*>(ws + a_pairs);
-  w->keys = ws + a_keys;
-  w->totals = ws + a_totals;
-  w->hist = ws + a_hist;
-  w->buf[0] = reinterpret_cast<int2*>(ws + a_buf);
-  w->buf[1] = reinterpret_cast<int2*>(ws + a_buf + 2 * p);
-  w->partials = reinterpret_cast<float*>(ws + a_part);
-  return true;
+  const int64_t a_part = a_buf + 6 * p;
+  if (ws != nullptr) {
+    w->offsets = ws;
+    w->chunks = ws + num_keys + 1;
+    w->pairs = reinterpret_cast<int2*>(ws + a_pairs);
+    w->keys = ws + a_keys;
+    w->totals = ws + a_totals;
+    w->hist = ws + a_hist;
+    w->buf[0] = reinterpret_cast<int2*>(ws + a_buf);
+    w->buf[1] = reinterpret_cast<int2*>(ws + a_buf + 2 * p);
+    w->wbuf[0] = reinterpret_cast<float*>(ws + a_buf + 4 * p);
+    w->wbuf[1] = reinterpret_cast<float*>(ws + a_buf + 5 * p);
+    w->partials = reinterpret_cast<float*>(ws + a_part);
+  }
+  return a_part + 2 * pool_chunks(p) * c;
 }
 
 template <bool kPoints, bool kLast>
 void launch_place_as(int tiles, const int* cells, const int2* in,
-                     const int* m_ptr, const Geo& g, int shift,
-                     const Workspace& w, const float* height, int2* out,
+                     const float* weights, const int* m_ptr, const Geo& g,
+                     int shift, const Workspace& w, int2* out, float* w_out,
                      int* order, cudaStream_t stream) {
-  constexpr int kSmem = kTile * (kLast ? 13 : 9);
+  constexpr int kSmem = kTile * (kLast ? 17 : 13);
   static const cudaError_t attr = cudaFuncSetAttribute(
       place_kernel<kPoints, kLast>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmem);
   (void)attr;  // a refusal shows in the launch's error
   place_kernel<kPoints, kLast><<<tiles, kThreads, kSmem, stream>>>(
-      cells, in, m_ptr, g, shift, w.hist, w.totals, tiles, height, out, w.keys,
-      order);
+      cells, in, m_ptr, g, shift, w.hist, w.totals, tiles, weights, out, w_out,
+      w.keys, order);
 }
 
 template <bool kPoints>
 void launch_place(bool last, int tiles, const int* cells, const int2* in,
-                  const int* m_ptr, const Geo& g, int shift,
-                  const Workspace& w, const float* height, int2* out,
+                  const float* weights, const int* m_ptr, const Geo& g,
+                  int shift, const Workspace& w, int2* out, float* w_out,
                   int* order, cudaStream_t stream) {
   if (last) {
-    launch_place_as<kPoints, true>(tiles, cells, in, m_ptr, g, shift, w, height,
-                                   out, order, stream);
+    launch_place_as<kPoints, true>(tiles, cells, in, weights, m_ptr, g, shift, w,
+                                   out, nullptr, order, stream);
   } else {
-    launch_place_as<kPoints, false>(tiles, cells, in, m_ptr, g, shift, w,
-                                    height, out, nullptr, stream);
+    launch_place_as<kPoints, false>(tiles, cells, in, weights, m_ptr, g, shift,
+                                    w, out, w_out, nullptr, stream);
   }
 }
 
@@ -533,7 +548,7 @@ bool setup(int* ws, int64_t ws_ints, int batch, int num_cells, int n, int j,
   while ((int64_t{1} << bits) < keys64) ++bits;
   const int chunk_bits = bits > 22 ? bits - 10 : 12;  // <= kMaxChunks chunks
   *g = Geo{p, j * hw, static_cast<int>(p64 / batch), hw, num_cells, chunk_bits};
-  return carve(ws, ws_ints, *num_keys, p, *tiles, c, w);
+  return carve(ws, *num_keys, p, *tiles, c, w) <= ws_ints;
 }
 
 // Radix passes of kRadixBits over the bits of the largest key.
@@ -572,17 +587,18 @@ int prep(const float* height, const int* cells, int* ws, int64_t ws_ints,
     const int shift = pass * kRadixBits;
     const int2* in = w.buf[(pass + 1) & 1];
     int2* out = last ? w.pairs : w.buf[pass & 1];
+    float* w_out = w.wbuf[pass & 1];
     if (pass == 0) {
-      launch_place<true>(last, tiles, cells, nullptr, m_ptr, g, 0, w, height,
-                         out, order, stream);
+      launch_place<true>(last, tiles, cells, nullptr, height, m_ptr, g, 0, w,
+                         out, w_out, order, stream);
       continue;
     }
     tile_hist_kernel<false><<<tiles, kThreads, 0, stream>>>(
         nullptr, in, m_ptr, g, shift, nullptr, nullptr, w.hist, tiles);
     scan_kernel<<<kRadix, kScanThreads, 0, stream>>>(
         w.hist, tiles, w.totals, nullptr, nullptr, num_keys, g.chunk_bits);
-    launch_place<false>(last, tiles, nullptr, in, m_ptr, g, shift, w, height,
-                        out, order, stream);
+    launch_place<false>(last, tiles, nullptr, in, w.wbuf[(pass + 1) & 1], m_ptr,
+                        g, shift, w, out, w_out, order, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -624,10 +640,25 @@ int pool(const float* context, int* ws, int64_t ws_ints, float* out, int batch,
 
 }  // namespace
 
-// Workspace `ws` of `ws_ints` ints, laid out by `carve`: offsets
-// (batch * num_cells + 1) at int 0, the (row, weight) pairs at int
-// align4(batch * num_cells + 1 + kMaxChunks). Every entry returns -1 for arguments it
-// refuses, else the CUDA error code of its launches.
+// Every entry returns -1 for arguments it refuses, else 0 or the CUDA
+// error code of its launches. `ws` is an int32 workspace of `ws_ints` ints
+// of the size `lift_splat_layout` gives.
+
+// out[0]: the workspace's size in ints for these shapes (a pool of C
+// channels; c = 0 for the prep alone); out[1]: the int offset in it of the
+// prep's (row, weight) pairs, after the offsets at int 0.
+extern "C" int lift_splat_layout(int batch, int num_cells, int n, int j,
+                                 int hw, int c, long long* out) {
+  Geo g;
+  int num_keys, tiles;
+  Workspace w;
+  if (c < 0 || !setup(nullptr, INT64_MAX, batch, num_cells, n, j, hw, c, &g,
+                      &num_keys, &tiles, &w))
+    return -1;
+  out[0] = carve(nullptr, num_keys, g.p, tiles, c, nullptr);
+  out[1] = align4(int64_t{num_keys} + 1 + kMaxChunks);
+  return 0;
+}
 
 // The prep alone; order: (N*J*HW,) int32 or null.
 extern "C" int lift_prep_launch(const float* height, const int* cells,

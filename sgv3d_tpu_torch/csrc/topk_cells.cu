@@ -24,9 +24,11 @@
 //     ascending bin order, as a stable sort does.
 //   - k rounds of a shuffle argmax over the L list heads merge the lists;
 //     the lane that owns the winner pops it.
-//   - The k winners of each row go to shared memory; then every thread
-//     writes (N, k, HW) coalesced across rows, reading the cell id of each
-//     winner only.
+//   - The k winners of each row go to shared memory, in place of the
+//     heights (so that enough blocks fit an SM to take both served shapes
+//     in one wave); then every thread gathers the cell id of each of its
+//     winners, all in flight together, and writes (N, k, HW) coalesced
+//     across rows.
 // NaN is not handled (softmax gives none).
 
 #include <cuda_runtime.h>
@@ -93,8 +95,9 @@ topk_cells_kernel(const float* __restrict__ h, const int* __restrict__ cells,
   constexpr int kPix = kThreads / L;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t bar;
+  // the rows' heights, then (once every list is built) the winners
   float* s_h = reinterpret_cast<float*>(smem);                   // kPix * d
-  float* s_v = s_h + ((kPix * d + 3) & ~3);                      // k * kPix
+  float* s_v = s_h;                                              // k * kPix
   int* s_b = reinterpret_cast<int*>(s_v + KMAX * kPix);          // k * kPix
 
   const int row0 = blockIdx.x * kPix;
@@ -102,6 +105,7 @@ topk_cells_kernel(const float* __restrict__ h, const int* __restrict__ cells,
   const int n_floats = npix * d;
   const int bulk = (n_floats * 4) & ~15;  // bytes the bulk copy moves
   const float* src = h + static_cast<int64_t>(row0) * d;
+  const int* src_c = cells + static_cast<int64_t>(row0) * d;
   const uint32_t b_addr = smem_addr(&bar);
   if (threadIdx.x == 0) {
     asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(b_addr));
@@ -120,6 +124,7 @@ topk_cells_kernel(const float* __restrict__ h, const int* __restrict__ cells,
           "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(s_h)),
           "l"(src), "r"(bulk), "r"(b_addr)
           : "memory");
+
     } else {
       asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(b_addr)
                    : "memory");
@@ -145,6 +150,7 @@ topk_cells_kernel(const float* __restrict__ h, const int* __restrict__ cells,
       if (v > lv[KMAX - 1]) insert(lv, lb, v, bin);
     }
   }
+  __syncthreads();  // the heights are dead; s_v and s_b take their place
 
   if (L == 1) {
 #pragma unroll
@@ -186,14 +192,14 @@ topk_cells_kernel(const float* __restrict__ h, const int* __restrict__ cells,
 
   // every cell gather of the thread is issued before the first store
   constexpr int kOut = (KMAX * kPix + kThreads - 1) / kThreads;
-  int cv[kOut];
+  int cv[kOut] = {};
 #pragma unroll
   for (int i = 0; i < kOut; ++i) {
     const int idx = threadIdx.x + i * kThreads;
     const int px = idx % kPix;
-    cv[i] = idx < k * kPix && px < npix
-                ? __ldg(cells + static_cast<int64_t>(row0 + px) * d + s_b[idx])
-                : 0;
+    if (idx < k * kPix && px < npix) {
+      cv[i] = __ldg(src_c + static_cast<int64_t>(px) * d + s_b[idx]);
+    }
   }
 #pragma unroll
   for (int i = 0; i < kOut; ++i) {
@@ -213,8 +219,9 @@ template <int KMAX, int L>
 int launch(const float* h, const int* cells, float* out_vals, int* out_cells,
            int rows, int d, int k, int hw, cudaStream_t stream) {
   constexpr int kPix = kThreads / L;
-  const size_t smem = sizeof(float) * (((kPix * d + 3) & ~3) + 2 * KMAX * kPix);
+  const size_t smem = sizeof(float) * kPix * (d > 2 * KMAX ? d : 2 * KMAX);
   auto kernel = topk_cells_kernel<KMAX, L>;
+  if (smem > 232448) return -1;  // above an SM's shared memory for a block
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -27,11 +27,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-# C entry points: name -> argtypes. Every function returns cudaGetLastError()
-# (-1 for arguments it refuses).
+# C entry points: name -> argtypes. Every function returns 0 or the CUDA
+# error of its launches (-1 for arguments it refuses).
 SIGNATURES = {
     # (h, cells, out_vals, out_cells, rows, d, k, hw, lanes, stream)
     "topk_cells_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (batch, num_cells, n, j, hw, c, out[2])
+    "lift_splat_layout": [_I] * 6 + [_P],
     # (height, cells, ws, ws_ints, order, batch, num_cells, n, j, hw, stream)
     "lift_prep_launch": [_P, _P, _P, _L, _P] + [_I] * 5 + [_P],
     # (context, ws, ws_ints, out, batch, num_cells, n, j, hw, c, stream)

@@ -16,15 +16,14 @@ and sum in plain torch. There is no fallback from one to the other.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from sgv3d_tpu_torch.ops import cuda_lib
 
 MAX_CHANNELS = 128
-RADIX_BITS = 8          # csrc/lift_splat.cu: kRadixBits
-TILE = 2048             # csrc/lift_splat.cu: kTile, points a tile
-MAX_CHUNKS = 1024       # csrc/lift_splat.cu: kMaxChunks
-POOL_CHUNK = 64         # csrc/lift_splat.cu: kChunk, slots a pool warp
+RADIX_BITS = 8          # the digit of the kernel's radix passes
 POINT_CHUNK = 1 << 20   # points a gather + index_add_ in the plain version
 
 
@@ -86,22 +85,15 @@ def lift_splat_plain(height: torch.Tensor, context: torch.Tensor,
     return out.reshape(batch, num_cells, c)
 
 
-def workspace_ints(n: int, j: int, hw: int, batch: int, num_cells: int,
-                   c: int = 0) -> int:
-    """Size of the kernel's int32 workspace (`carve` in csrc/lift_splat.cu):
-    offsets and per-chunk key counts, the last pass's (row, weight) pairs
-    and keys, digit totals, the tiles' digit counts, two ping-pong buffers
-    of (key, q) pairs and, for a pool of C channels, its partial rows."""
-    p = n * j * hw
-    tiles = -(-p // TILE)
-    a_hist = (_align4(batch * num_cells + 1 + MAX_CHUNKS) + 3 * p
-              + (1 << RADIX_BITS))
-    return (_align4(a_hist + (1 << RADIX_BITS) * tiles) + 4 * p
-            + 2 * -(-p // POOL_CHUNK) * c)
-
-
-def _align4(x: int) -> int:
-    return (x + 3) // 4 * 4
+def workspace(n: int, j: int, hw: int, batch: int, num_cells: int, c: int = 0,
+              lib=None) -> tuple[int, int]:
+    """(ints of the kernel's int32 workspace for these shapes and a pool of
+    C channels, int offset in it of the prep's (row, weight) pairs), as
+    `lib` (default: the port's kernels) lays it out."""
+    out = (ctypes.c_longlong * 2)()
+    cuda_lib.check((lib or cuda_lib.library()).lift_splat_layout(
+        batch, num_cells, n, j, hw, c, out), "lift_splat_layout")
+    return out[0], out[1]
 
 
 def _check(name, height, cells, batch, context=None):
@@ -136,8 +128,8 @@ def lift_splat_prep(height: torch.Tensor, cells: torch.Tensor, batch: int,
     n, j, hw = height.shape
     h, cl = height.contiguous(), cells.contiguous()
     keys = batch * num_cells
-    ws = torch.empty(workspace_ints(n, j, hw, batch, num_cells),
-                     dtype=torch.int32, device=h.device)
+    ints, pairs_at = workspace(n, j, hw, batch, num_cells)
+    ws = torch.empty(ints, dtype=torch.int32, device=h.device)
     order = torch.empty(n * j * hw, dtype=torch.int32, device=h.device)
     cuda_lib.check(cuda_lib.library().lift_prep_launch(
         h.data_ptr(), cl.data_ptr(), ws.data_ptr(), ws.numel(),
@@ -146,7 +138,7 @@ def lift_splat_prep(height: torch.Tensor, cells: torch.Tensor, batch: int,
     lift_splat_prep.launches += 1
     offsets = ws[:keys + 1]
     live = int(offsets[-1])
-    pairs = ws[_align4(keys + 1 + MAX_CHUNKS):][:2 * live].view(live, 2)
+    pairs = ws[pairs_at:pairs_at + 2 * live].view(live, 2)
     return {"offsets": offsets, "order": order[:live], "rows": pairs[:, 0],
             "weights": pairs[:, 1].view(torch.float32)}
 
@@ -163,7 +155,7 @@ def lift_splat_forward(height: torch.Tensor, context: torch.Tensor,
     n, j, hw = height.shape
     c = context.shape[-1]
     h, ctx, cl = height.contiguous(), context.contiguous(), cells.contiguous()
-    ws = torch.empty(workspace_ints(n, j, hw, batch, num_cells, c),
+    ws = torch.empty(workspace(n, j, hw, batch, num_cells, c)[0],
                      dtype=torch.int32, device=h.device)
     out = torch.empty((batch, num_cells, c), dtype=torch.float32, device=h.device)
     cuda_lib.check(cuda_lib.library().lift_splat_launch(

@@ -13,7 +13,7 @@ from sgv3d_tpu_torch.ops import cuda_lib
 
 MAX_BINS = 256      # a block's rows of heights in shared memory
 MAX_K = 32          # the longest register-resident list a lane keeps
-LANES = (1, 2, 4, 8)
+LANES = (1, 2, 4, 8)    # lanes a row the kernel takes
 
 
 def topk_cells_plain(height_hwd: torch.Tensor, cell_hwd: torch.Tensor,
@@ -34,11 +34,9 @@ def lanes_per_pixel(rows: int) -> int:
 
 
 def topk_with_cells(height_hwd: torch.Tensor, cell_hwd: torch.Tensor,
-                    k: int, lanes: int | None = None
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
+                    k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """height_hwd (N, HW, D) float32, cell_hwd (N, HW, D) int32 ->
-    (vals (N, k, HW) float32 descending, cells (N, k, HW) int32). `lanes`
-    (one of LANES) overrides `lanes_per_pixel` on the card."""
+    (vals (N, k, HW) float32 descending, cells (N, k, HW) int32)."""
     if height_hwd.device.type == "cpu":
         return topk_cells_plain(height_hwd, cell_hwd, k)
     if height_hwd.device.type != "cuda" or cell_hwd.device != height_hwd.device:
@@ -54,9 +52,6 @@ def topk_with_cells(height_hwd: torch.Tensor, cell_hwd: torch.Tensor,
     if d > MAX_BINS or not 0 < k <= min(d, MAX_K):
         raise ValueError(f"topk_with_cells: need D <= {MAX_BINS} and "
                          f"0 < k <= min(D, {MAX_K}); got D={d}, k={k}")
-    lanes = lanes_per_pixel(n * hw) if lanes is None else lanes
-    if lanes not in LANES:
-        raise ValueError(f"topk_with_cells: lanes {lanes} not in {LANES}")
     h = height_hwd.contiguous()
     if h.data_ptr() % 16:       # the kernel's bulk copy needs 16 bytes
         h = h.clone()
@@ -65,7 +60,8 @@ def topk_with_cells(height_hwd: torch.Tensor, cell_hwd: torch.Tensor,
     cells = torch.empty((n, k, hw), dtype=torch.int32, device=h.device)
     err = cuda_lib.library().topk_cells_launch(
         h.data_ptr(), c.data_ptr(), vals.data_ptr(), cells.data_ptr(),
-        n * hw, d, k, hw, lanes, torch.cuda.current_stream(h.device).cuda_stream)
+        n * hw, d, k, hw, lanes_per_pixel(n * hw),
+        torch.cuda.current_stream(h.device).cuda_stream)
     cuda_lib.check(err, "topk_cells_launch")
     topk_with_cells.launches += 1
     return vals, cells

@@ -7,7 +7,7 @@ Times with CUDA events (mean of 20 calls after a warm-up) K1 at each
 number of lanes a pixel (`topk_cells.LANES`, the kernel's own choice
 marked), and K2 whole and split into its prep (the key placement) and its
 pool, each launched alone, with each kernel's device time from
-`torch.profiler`; then K2 built with other tile and chunk sizes
+`torch.profiler`; then K2 built with other constants
 (`VARIANTS`, copies of the source in `build/lift_probe/`), each held
 against the kernel as it is. Two kinds of cells: uniform ones with a quarter in the trash cell (the inputs
 of `chip_smoke.py`), and the cells of each exp's own synthetic rig after
@@ -30,7 +30,7 @@ from sgv3d_tpu_torch.configs import get_exp
 from sgv3d_tpu_torch.data.synthetic import make_batch
 from sgv3d_tpu_torch.nn.lss_fpn import compute_lift_cells, compute_valid_pixels
 from sgv3d_tpu_torch.ops import cuda_lib
-from sgv3d_tpu_torch.ops.lift_splat import lift_splat_forward, workspace_ints
+from sgv3d_tpu_torch.ops.lift_splat import lift_splat_forward, workspace
 from sgv3d_tpu_torch.ops.topk_cells import LANES, lanes_per_pixel, topk_with_cells
 from sgv3d_tpu_torch.ops.voxel_pooling import apply_pixel_cull, cull_pixel_indices
 
@@ -38,9 +38,8 @@ BATCH = 4
 # constants of csrc/lift_splat.cu set to other values, to time beside the
 # source's own: points a lane in a prep tile, slots a pool warp, context
 # rows in flight
-VARIANTS = ({"kItems": 8}, {"kItems": 4}, {"kChunk": 32, "kUnroll": 2},
-            {"kChunk": 32, "kUnroll": 1}, {"kChunk": 64, "kUnroll": 2},
-            {"kChunk": 16, "kUnroll": 2})
+VARIANTS = ({"kItems": 16}, {"kItems": 4}, {"kChunk": 32, "kUnroll": 1},
+            {"kChunk": 128, "kUnroll": 2}, {"kChunk": 64, "kUnroll": 4})
 OUT = cuda_lib.BUILD_ROOT.parent / "lift_probe"
 # exp, context channels into the lift
 EXPS = (("sgv3d_r50_128", 87), ("bevheight_dair_r101_128", 80))
@@ -90,13 +89,30 @@ def _segments(cells: torch.Tensor, batch: int, num_cells: int) -> str:
             f"{float(counts.sum()) / max(busy, 1):.1f} max {int(counts.max())}")
 
 
+def topk_launcher(h, cells, k: int, lanes: int):
+    """A closure that launches K1 at `lanes` lanes a row (one of
+    topk_cells.LANES), uncounted, and the (vals, cells) it writes."""
+    n, hw, d = h.shape
+    vals = torch.empty((n, k, hw), dtype=torch.float32, device=h.device)
+    out = torch.empty((n, k, hw), dtype=torch.int32, device=h.device)
+    lib = cuda_lib.library()
+
+    def launch():
+        cuda_lib.check(lib.topk_cells_launch(
+            h.data_ptr(), cells.data_ptr(), vals.data_ptr(), out.data_ptr(),
+            n * hw, d, k, hw, lanes, torch.cuda.current_stream(h.device).cuda_stream),
+            "topk_cells_launch")
+
+    return launch, (vals, out)
+
+
 def k2_launchers(height, ctx, cells, batch: int, num_cells: int):
     """Closures that launch K2's prep alone and its pool alone (over the
     prep's workspace), uncounted and without a sync, for timing."""
     n, j, hw = height.shape
     c = ctx.shape[-1]
     dev = height.device
-    ws = torch.empty(workspace_ints(n, j, hw, batch, num_cells, c),
+    ws = torch.empty(workspace(n, j, hw, batch, num_cells, c)[0],
                      dtype=torch.int32, device=dev)
     out = torch.empty((batch, num_cells, c), dtype=torch.float32, device=dev)
     lib = cuda_lib.library()
@@ -196,7 +212,7 @@ def build_variants() -> dict:
         if proc.returncode:
             raise RuntimeError(f"lift_probe: nvcc failed for {name}:\n{log}")
         lib = ctypes.CDLL(str(OUT / f"{name}.so"))
-        for fn in ("lift_prep_launch", "lift_pool_launch"):
+        for fn in ("lift_splat_layout", "lift_prep_launch", "lift_pool_launch"):
             getattr(lib, fn).argtypes = cuda_lib.SIGNATURES[fn]
         libs[name] = lib
     return libs
@@ -213,9 +229,8 @@ def variants(libs, height, ctx, cells, batch, num_cells) -> str:
     stream = torch.cuda.current_stream(dev).cuda_stream
     parts = []
     for name, lib in libs.items():
-        # room for the smallest tiles and pool chunks of any variant
-        ws = torch.empty(2 * workspace_ints(n, j, hw, batch, num_cells, c)
-                         + n * j * hw * c, dtype=torch.int32, device=dev)
+        ws = torch.empty(workspace(n, j, hw, batch, num_cells, c, lib)[0],
+                         dtype=torch.int32, device=dev)
         out = torch.empty_like(ref)
 
         def prep():
@@ -270,15 +285,17 @@ def run(dev) -> list[str]:
         cells_hwd = torch.randint(0, num_cells + 1, (n, hw, d), generator=g,
                                   device=dev, dtype=torch.int32)
         for kind, cl in (("uniform", cells_hwd), ("rig", top_cells)):
-            ms = {lanes: _cuda_ms(lambda: topk_with_cells(h_hwd, cl, k, lanes))
-                  for lanes in LANES}
+            launchers = {lanes: topk_launcher(h_hwd, cl, k, lanes)[0]
+                         for lanes in LANES}
+            ms = {lanes: _cuda_ms(fn) for lanes, fn in launchers.items()}
+            dev_us = {lanes: sum(kernel_us(fn).values())
+                      for lanes, fn in launchers.items()}
             own = lanes_per_pixel(n * hw)
-            dev_us = {lanes: sum(kernel_us(
-                lambda: topk_with_cells(h_hwd, cl, k, lanes)).values())
-                for lanes in LANES}
             emit(f"{exp} K1 ({n}, {hw}, {d}) k={k} {kind} cells, by lanes a "
                  f"pixel, ms (device us): " + ", ".join(
-                     f"{lanes}: {t:.4f} ({dev_us[lanes]:.1f})" + (
+                     f"{lanes}: {t:.4f} ("
+                     + (f"{dev_us[lanes]:.1f}" if dev_us[lanes] else "not traced")
+                     + ")" + (
                          " (own)" if lanes == own else "")
                      for lanes, t in ms.items())
                  + f"; host enqueue {host_us(lambda: topk_with_cells(h_hwd, cl, k)):.1f}"

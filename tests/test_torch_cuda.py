@@ -19,7 +19,7 @@ from sgv3d_tpu_torch.ops.fused_bottleneck import (
 from sgv3d_tpu_torch.ops.lift_splat import (
     lift_splat_forward, lift_splat_plain, lift_splat_prep)
 from sgv3d_tpu_torch.ops.topk_cells import LANES, topk_cells_plain, topk_with_cells
-from sgv3d_tpu_torch.tools import spike_gather
+from sgv3d_tpu_torch.tools import lift_probe, spike_gather
 
 pytestmark = pytest.mark.cuda
 
@@ -90,8 +90,11 @@ def test_topk_kernel_exact_at_every_lane_count(cuda_device, kind, d, k):
     cells = torch.randint(0, 16385, h.shape, generator=g, device=cuda_device,
                           dtype=torch.int32)
     ref = topk_cells_plain(h, cells, k)
+    got = topk_with_cells(h, cells, k)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     for lanes in LANES:
-        got = topk_with_cells(h, cells, k, lanes=lanes)
+        launch, got = lift_probe.topk_launcher(h, cells, k, lanes)
+        launch()
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), lanes
 
 
