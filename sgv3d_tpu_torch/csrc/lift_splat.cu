@@ -245,9 +245,9 @@ scan_kernel(int* __restrict__ hist, int tiles, int* __restrict__ totals,
 // One pass's placement of a tile; weights[i] is item i's weight (pass 0:
 // the height of point i). Not the last pass: out[pos] = (key, q) and
 // w_out[pos] = its weight. The last: out[pos] = (context row, weight bits),
-// keys_out[pos] = key and, if `order` is not null, order[pos] = q. The tile's items are staged in
-// shared memory in digit order first, so that each digit's run goes out
-// coalesced.
+// keys_out[pos] = key and, if `order` is not null, order[pos] = q. The
+// tile's items are staged in shared memory in digit order first, so that
+// each digit's run goes out coalesced.
 template <bool kPoints, bool kLast>
 __global__ void __launch_bounds__(kThreads)
 place_kernel(const int* __restrict__ cells, const int2* __restrict__ items,

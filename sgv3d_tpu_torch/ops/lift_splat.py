@@ -17,6 +17,7 @@ and sum in plain torch. There is no fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -90,10 +91,18 @@ def workspace(n: int, j: int, hw: int, batch: int, num_cells: int, c: int = 0,
     """(ints of the kernel's int32 workspace for these shapes and a pool of
     C channels, int offset in it of the prep's (row, weight) pairs), as
     `lib` (default: the port's kernels) lays it out."""
+    if lib is None:
+        return _layout(n, j, hw, batch, num_cells, c)
     out = (ctypes.c_longlong * 2)()
-    cuda_lib.check((lib or cuda_lib.library()).lift_splat_layout(
-        batch, num_cells, n, j, hw, c, out), "lift_splat_layout")
+    cuda_lib.check(lib.lift_splat_layout(batch, num_cells, n, j, hw, c, out),
+                   "lift_splat_layout")
     return out[0], out[1]
+
+
+@functools.lru_cache(maxsize=64)
+def _layout(n: int, j: int, hw: int, batch: int, num_cells: int,
+            c: int) -> tuple[int, int]:
+    return workspace(n, j, hw, batch, num_cells, c, cuda_lib.library())
 
 
 def _check(name, height, cells, batch, context=None):

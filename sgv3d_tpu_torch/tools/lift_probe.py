@@ -7,12 +7,12 @@ Times with CUDA events (mean of 20 calls after a warm-up) K1 at each
 number of lanes a pixel (`topk_cells.LANES`, the kernel's own choice
 marked), and K2 whole and split into its prep (the key placement) and its
 pool, each launched alone, with each kernel's device time from
-`torch.profiler`; then K2 built with other constants
-(`VARIANTS`, copies of the source in `build/lift_probe/`), each held
-against the kernel as it is. Two kinds of cells: uniform ones with a quarter in the trash cell (the inputs
-of `chip_smoke.py`), and the cells of each exp's own synthetic rig after
-the pixel cull (skewed: near cells dense, far cells empty), with K1's
-top-k of seeded softmax heights feeding K2. It needs an NVIDIA GPU.
+`torch.profiler`; then K2 built with other constants (`VARIANTS`, copies
+of the source in `build/lift_probe/`), each held against the kernel as it
+is. Two kinds of cells: uniform ones with a quarter in the trash cell (the
+inputs of `chip_smoke.py`), and the cells of each exp's own synthetic rig
+after the pixel cull (skewed: near cells dense, far cells empty), with
+K1's top-k of seeded softmax heights feeding K2. It needs an NVIDIA GPU.
 """
 from __future__ import annotations
 
@@ -100,8 +100,8 @@ def topk_launcher(h, cells, k: int, lanes: int):
     def launch():
         cuda_lib.check(lib.topk_cells_launch(
             h.data_ptr(), cells.data_ptr(), vals.data_ptr(), out.data_ptr(),
-            n * hw, d, k, hw, lanes, torch.cuda.current_stream(h.device).cuda_stream),
-            "topk_cells_launch")
+            n * hw, d, k, hw, lanes,
+            torch.cuda.current_stream(h.device).cuda_stream), "topk_cells_launch")
 
     return launch, (vals, out)
 
@@ -291,15 +291,14 @@ def run(dev) -> list[str]:
             dev_us = {lanes: sum(kernel_us(fn).values())
                       for lanes, fn in launchers.items()}
             own = lanes_per_pixel(n * hw)
-            emit(f"{exp} K1 ({n}, {hw}, {d}) k={k} {kind} cells, by lanes a "
-                 f"pixel, ms (device us): " + ", ".join(
-                     f"{lanes}: {t:.4f} ("
+            shown = [f"{lanes}: {t:.4f} ("
                      + (f"{dev_us[lanes]:.1f}" if dev_us[lanes] else "not traced")
-                     + ")" + (
-                         " (own)" if lanes == own else "")
-                     for lanes, t in ms.items())
-                 + f"; host enqueue {host_us(lambda: topk_with_cells(h_hwd, cl, k)):.1f}"
-                 f" us a call")
+                     + (") (own)" if lanes == own else ")")
+                     for lanes, t in ms.items()]
+            enqueue = host_us(lambda: topk_with_cells(h_hwd, cl, k))
+            emit(f"{exp} K1 ({n}, {hw}, {d}) k={k} {kind} cells, by lanes a "
+                 f"pixel, ms (device us): {', '.join(shown)}; host enqueue "
+                 f"{enqueue:.1f} us a call")
         vals, rig_top = topk_with_cells(h_hwd, top_cells, k)
         for layout, jj, hwl, rig in (("top-k", k, hw, rig_top),
                                      ("all-bin", d, hw_all, all_cells)):
@@ -312,11 +311,12 @@ def run(dev) -> list[str]:
                 emit(f"{label}: {_segments(cl, BATCH, num_cells)}")
                 args = (height.contiguous(), ctx, cl.contiguous(), BATCH, num_cells)
                 emit(_line(label, k2_split(*args)))
-                fwd = lambda: lift_splat_forward(*args)  # noqa: E731
-                per = kernel_us(fwd)
-                emit(f"{label}: device us a call by kernel: " + ", ".join(
-                    f"{k} {v:.1f}" for k, v in per.items())
-                     + f"; host enqueue {host_us(fwd):.1f} us a call")
+                def fwd():
+                    return lift_splat_forward(*args)
+
+                per = ", ".join(f"{name} {us:.1f}" for name, us in kernel_us(fwd).items())
+                emit(f"{label}: device us a call by kernel: {per}; host enqueue "
+                     f"{host_us(fwd):.1f} us a call")
                 emit(f"{label}: {variants(libs, *args)}")
     return lines
 
