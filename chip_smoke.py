@@ -9,17 +9,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   2. hold each kernel against its plain PyTorch version on the card, batch 4:
      K1 top-k-with-cells exactly (its lanes a pixel printed) and K2
      lift-splat within 1e-5 * max|ref| + 1e-6 and bitwise equal across two
-     runs, its prep's order exactly that of `torch.sort(stable=True)` +
-     `searchsorted`, its prep and pool timed apart, in both layouts at the
-     shapes of both served paths (SGV3D-r50: 18432 pixels, C = 87; r101:
-     4608 pixels, C = 80); K3 the fused identity bottleneck at ragged shapes and
+     runs, its prep's offsets and order exactly the plain prep's (per-key
+     counts, their scan and `torch.sort(stable=True)`), its prep and pool
+     timed apart, in both layouts at the shapes of both served paths
+     (SGV3D-r50: 18432 pixels, C = 87; r101: 4608 pixels, C = 80); K1 and
+     K2 timed as 20 calls captured in one CUDA graph (device time) and as
+     20 back-to-back wrapper calls (with the host's enqueue); K3 the fused
+     identity bottleneck at ragged shapes and
      at each r50 stage's shape, with large positive BN biases, within
      2e-2 * max|plain| and bitwise equal across two runs, timed beside the
      plain version and the unfused cuDNN block; K4 the three gathers of the
      probe, exactly ctx[idx]. Each kernel's entry carries its bound (bytes
      over 3.35 TB/s or operations over the data sheet's peak, the larger),
-     its launches a forward and one PyTorch call's time where one call
-     computes the same function (torch.topk for K1, ctx[idx] for K4);
+     its launches a forward as counted in phase 5's main-path run, and one
+     PyTorch call's time where one call computes the same function
+     (torch.topk for K1, ctx[idx] for K4);
   3. the tiny configs (copies of tests/tiny_configs.py), BEVHeight and
      SGV3D, each with a top-k lift + cull and with the all-bin lift, served
      on the card and on the CPU in float32: head tensors within 1e-3 of
@@ -29,8 +33,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      top-16 lift): `__call__` once and `stream` over 3 batches, with the
      kernels' launch counts set to 0 just before and read just after, then
      20 timed batches each way; then the exact all-bin lift;
-  5. `sgv3d_r50_128` the same way with `fused_convs=True`: K1, K2 and K3 (12
-     a forward) launch counts, finite outputs, a background-suppression keep
+  5. `sgv3d_r50_128` the same way with `fused_convs=True`: K1 (1 a
+     forward), K2 (the same count each forward, the prep's memset and
+     kernels and the pool's) and K3 (12 a forward) launch counts, finite
+     outputs, a background-suppression keep
      share strictly between 0 and 1, the four r50 stage outputs within 5e-2
      of the unfused (cuDNN) ones, and 20 timed batches fused on and off.
 The line before the last is the card's name and power limit from
@@ -174,6 +180,27 @@ def _cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _graph_ms(fn, iters: int = 20) -> float:
+    """Mean device time of `fn` over `iters` calls captured in one CUDA
+    graph and replayed (after a warm-up call and a warm-up replay), so that
+    the host's enqueue of each call is out of the number."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 # NVIDIA's data sheet for the H100 SXM (dense): bf16 tensor cores, float32
 # outside them, HBM3
 PEAK_BF16_FLOPS = 989e12
@@ -239,45 +266,32 @@ def _kernel_label(mangled: str) -> str:
     return label
 
 
-def stable_order_reference(cells: torch.Tensor, batch: int, num_cells: int):
-    """K2's prep by `torch.sort(stable=True)` and `searchsorted`: the offsets
-    of the live segments b * num_cells + cell and the order of the live
-    points, from a stable sort of the global keys b * (num_cells + 1) + cell
-    (cells in [0, num_cells]) with the trash points dropped afterwards."""
-    n, dev = cells.shape[0], cells.device
-    cams = torch.arange(n, device=dev) // (n // batch)
-    keys = (cells.long() + (cams * (num_cells + 1))[:, None, None]).reshape(-1)
-    skeys, order = torch.sort(keys, stable=True)
-    bounds = torch.searchsorted(
-        skeys, torch.arange(batch * (num_cells + 1) + 1, device=dev))
-    lens = bounds.diff().reshape(batch, num_cells + 1)[:, :num_cells].reshape(-1)
-    offsets = torch.cat([lens.new_zeros(1), lens.cumsum(0)])
-    return offsets, order[skeys % (num_cells + 1) != num_cells]
-
-
 def check_prep(height, cells, batch: int, num_cells: int, name: str) -> int:
-    """K2's prep on the card against `stable_order_reference`: the same
-    offsets and order exactly, and each slot's (row, weight) the row and
-    height of its point. Returns the live points."""
-    from sgv3d_tpu_torch.ops.lift_splat import lift_splat_prep
+    """K2's prep on the card against `lift_prep_plain` (per-key counts,
+    their scan and `torch.sort(stable=True)`): the same offsets and order
+    exactly, and each slot's (row, weight) the row and height of its
+    point. Returns the live points."""
+    from sgv3d_tpu_torch.ops.lift_splat import lift_prep_plain, lift_splat_prep
 
     got = lift_splat_prep(height, cells, batch, num_cells)
-    offsets, order = stable_order_reference(cells, batch, num_cells)
+    offsets, order = lift_prep_plain(cells, batch, num_cells)
     _, j, hw = height.shape
     rows = (order // (j * hw)) * hw + order % hw
     if not (torch.equal(got["offsets"].long(), offsets)
             and torch.equal(got["order"].long(), order)
             and torch.equal(got["rows"].long(), rows)
             and torch.equal(got["weights"], height.reshape(-1)[order])):
-        raise AssertionError(f"K2 prep ({name}) differs from torch.sort("
-                             f"stable=True) + searchsorted")
+        raise AssertionError(f"K2 prep ({name}) differs from the plain prep "
+                             f"(torch.sort(stable=True))")
     return order.numel()
 
 
 def phase_kernels(dev, smi) -> list[dict]:
-    """K1 and K2 at the shapes of both served paths: this slice's SGV3D-r50
-    (the cull keeps 18432 of 108x192 pixels, C = 80 + 7 = 87) and PR 1's
-    BEVHeight-r101 (4608 of 54x96 pixels, C = 80)."""
+    """K1 and K2 at the shapes of both served paths: SGV3D-r50 (the cull
+    keeps 18432 of 108x192 pixels, C = 80 + 7 = 87) and BEVHeight-r101
+    (4608 of 54x96 pixels, C = 80). "ms" is device time (`_graph_ms`: at
+    r101 a call's host enqueue is longer than its kernels), "call_ms" the
+    wrapper's back-to-back time with the host in it."""
     from sgv3d_tpu_torch.ops.lift_splat import lift_splat_forward, lift_splat_plain
     from sgv3d_tpu_torch.ops.topk_cells import (
         lanes_per_pixel, topk_cells_plain, topk_with_cells)
@@ -288,13 +302,12 @@ def phase_kernels(dev, smi) -> list[dict]:
     k1 = {"name": "topk_cells", "route": "cuda",
           "source": "sgv3d_tpu_torch/csrc/topk_cells.cu",
           "replaces": "sgv3d_tpu/ops/pallas_topk.py:50", "max_abs_err": 0.0,
-          "launches_per_forward": 1,
           "library_note": "torch.topk(h, k, dim=-1): values and indices "
                           "only; no tie order, no cells"}
     k2 = {"name": "lift_splat", "route": "cuda",
           "source": "sgv3d_tpu_torch/csrc/lift_splat.cu",
           "replaces": "sgv3d_tpu/ops/pallas_lift_splat.py:87",
-          "max_abs_err": 0.0, "launches_per_forward": 1, "library_ms": None,
+          "max_abs_err": 0.0, "library_ms": None,
           "library_note": "none: no single PyTorch call forms height x "
                           "context and segment-sums it into cells"}
     for path, hw, hw_all, c in (("sgv3d_r50", 18432, 20736, 87),
@@ -317,9 +330,10 @@ def phase_kernels(dev, smi) -> list[dict]:
             bad = (got[0] != ref[0]) | (got[1] != ref[1])
             raise AssertionError(f"K1 ({path}) differs from its plain version "
                                  f"at {int(bad.sum())} of {bad.numel()} outputs")
-        k1["ms" + suffix] = _cuda_ms(lambda: topk_with_cells(h, cells, k))
+        k1["ms" + suffix] = _graph_ms(lambda: topk_with_cells(h, cells, k))
+        k1["call_ms" + suffix] = _cuda_ms(lambda: topk_with_cells(h, cells, k))
         k1["plain_ms" + suffix] = _cuda_ms(lambda: topk_cells_plain(h, cells, k))
-        k1["library_ms" + suffix] = _cuda_ms(lambda: torch.topk(h, k, dim=-1))
+        k1["library_ms" + suffix] = _graph_ms(lambda: torch.topk(h, k, dim=-1))
         # one compare a candidate bin, on the fp32 cores
         k1["bound_ms" + suffix], k1["bound_by" + suffix] = _bound(
             (h, cells) + tuple(got), h.numel(), PEAK_FP32_FLOPS)
@@ -327,7 +341,8 @@ def phase_kernels(dev, smi) -> list[dict]:
         k1["lanes_per_pixel" + suffix] = lanes
         print(f"[kernels] K1 topk_cells {path} ({n}, {hw}, {d}) k={k}, {lanes} "
               f"lanes a pixel: exact; "
-              f"kernel {k1['ms' + suffix]:.4f} ms, plain "
+              f"kernel {k1['ms' + suffix]:.4f} ms (wrapper call "
+              f"{k1['call_ms' + suffix]:.4f} ms), plain "
               f"{k1['plain_ms' + suffix]:.4f} ms, torch.topk "
               f"{k1['library_ms' + suffix]:.4f} ms, bound "
               f"{k1['bound_ms' + suffix]:.4f} ms ({k1['bound_by' + suffix]}) "
@@ -356,16 +371,18 @@ def phase_kernels(dev, smi) -> list[dict]:
             if not err <= bound:
                 raise AssertionError(f"K2 ({path}, {layout}) max|err| {err} > "
                                      f"{bound}")
-            ms = _cuda_ms(lambda: lift_splat_forward(*args))
+            ms = _graph_ms(lambda: lift_splat_forward(*args))
+            call_ms = _cuda_ms(lambda: lift_splat_forward(*args))
             prep, pool = k2_launchers(*args)
-            prep_ms, pool_ms = _cuda_ms(prep), _cuda_ms(pool)
+            prep_ms, pool_ms = _graph_ms(prep), _graph_ms(pool)
             plain_ms = _cuda_ms(lambda: lift_splat_plain(*args))
             k2["max_abs_err"] = max(k2["max_abs_err"], err)
             tag = suffix if layout == "top-k" else "_all_bin" + suffix
             # one multiply-add a (point, channel), on the fp32 cores
             bound_ms, bound_by = _bound((height, ctx, cl, out1),
                                         2 * height.numel() * c, PEAK_FP32_FLOPS)
-            k2.update({"ms" + tag: ms, "prep_ms" + tag: prep_ms,
+            k2.update({"ms" + tag: ms, "call_ms" + tag: call_ms,
+                       "prep_ms" + tag: prep_ms,
                        "pool_ms" + tag: pool_ms, "plain_ms" + tag: plain_ms,
                        "bound_ms" + tag: bound_ms, "bound_by" + tag: bound_by,
                        "shape" + tag: [n, j, hwl, c]})
@@ -373,7 +390,8 @@ def phase_kernels(dev, smi) -> list[dict]:
                   f"C={c}: order of the {live} live points equals torch.sort("
                   f"stable=True)'s; max|err| {err:.3e} <= {bound:.3e}, bitwise "
                   f"deterministic; kernel {ms:.4f} ms (prep {prep_ms:.4f}, pool "
-                  f"{pool_ms:.4f}), plain {plain_ms:.4f} ms, bound "
+                  f"{pool_ms:.4f}; wrapper call {call_ms:.4f} ms), plain "
+                  f"{plain_ms:.4f} ms, bound "
                   f"{bound_ms:.4f} ms ({bound_by}) ({smi})")
     return [k1, k2]
 
@@ -440,8 +458,7 @@ def phase_k3(dev, smi) -> dict:
     entry = {"name": "fused_bottleneck", "route": "cuda",
              "source": "sgv3d_tpu_torch/csrc/fused_bottleneck.cu",
              "replaces": "sgv3d_tpu/ops/pallas_bottleneck.py:189",
-             "max_abs_err": 0.0, "launches_per_forward": 12,
-             "library_ms": None,
+             "max_abs_err": 0.0, "library_ms": None,
              "library_note": "none: a bottleneck is several PyTorch calls; "
                              "the unfused cuDNN block is cudnn_unfused_ms",
              "stages": [], "ragged": []}
@@ -647,11 +664,13 @@ def phase_full(dev, smi):
     predictor = BEVHeightPredictor(exact_cfg, state, device=dev)
     lift_splat_forward.launches = 0
     res = predictor(*batches[0])
-    if lift_splat_forward.launches != 1 or not all(
+    all_bin_launches = lift_splat_forward.launches
+    if not all_bin_launches or not all(
             np.isfinite(b).all() and len(b) <= cap for b, _, _ in res):
         raise AssertionError("all-bin lift run failed")
     exact_ms = _wall_ms(lambda i: predictor(*batches[i % 4]), TIMED_CALLS)
-    print(f"[full] exact all-bin lift: {[len(r[0]) for r in res]} detections; "
+    print(f"[full] exact all-bin lift: {all_bin_launches} K2 launches; "
+          f"{[len(r[0]) for r in res]} detections; "
           f"__call__ median {np.median(exact_ms):.2f} ms per batch of {batch} "
           f"over {TIMED_CALLS} ({smi})")
     return launches, {"batch": batch, "call_ms_median": float(np.median(calls)),
@@ -713,10 +732,11 @@ def phase_sgv3d(dev, smi, cfg=None, batch: int = 4):
     hook.remove()
     forwards = len(results)
     if (forwards != 4 or launches["topk_cells"] != forwards
-            or launches["lift_splat"] != forwards
+            or not launches["lift_splat"] or launches["lift_splat"] % forwards
             or launches["fused_bottleneck"] != 12 * forwards):
         raise AssertionError(f"main path: {forwards} batches, launches "
-                             f"{launches} (K3 must launch 12 times a forward)")
+                             f"{launches} (K1 must launch once a forward, K2 "
+                             f"as often each forward, K3 12 times)")
     cap = cfg.head.num_tasks * cfg.head.post_max_size
     for res in results:
         if len(res) != batch:
@@ -769,7 +789,7 @@ def phase_sgv3d(dev, smi, cfg=None, batch: int = 4):
           f"{stream_ms:.2f} ms ({smi})")
     print(f"[sgv3d] peak torch.cuda.max_memory_allocated: "
           f"{peak / 2 ** 30:.3f} GiB ({smi})")
-    return launches, {
+    return launches, forwards, {
         "exp": cfg.name, "batch": batch, "fused_convs": True,
         "call_ms_median": float(np.median(on_ms)), "call_ms_min": min(on_ms),
         "call_ms_max": max(on_ms),
@@ -796,9 +816,10 @@ def main() -> int:
     k4 = phase_k4(dev, smi)
     phase_tiny(dev)
     launches_r101, full = phase_full(dev, smi)
-    launches, sgv3d = phase_sgv3d(dev, smi)
+    launches, forwards, sgv3d = phase_sgv3d(dev, smi)
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
+        entry["launches_per_forward"] = launches[entry["name"]] // forwards
         if entry["name"] in launches_r101:
             entry["launches_r101"] = launches_r101[entry["name"]]
     print(json.dumps({"kernels": kernels + k4, "sgv3d_full_width": sgv3d,

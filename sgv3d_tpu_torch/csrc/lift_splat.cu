@@ -559,10 +559,11 @@ int passes_for(int num_keys) {
 }
 
 // The prep: offsets and the last pass's pairs in the workspace, order[slot]
-// = q if `order` is not null. Returns a CUDA error code, -1 if refused.
+// = q if `order` is not null; adds to *launched one for each launch it
+// makes (kernels and the memset). Returns a CUDA error code, -1 if refused.
 int prep(const float* height, const int* cells, int* ws, int64_t ws_ints,
          int* order, int batch, int num_cells, int n, int j, int hw,
-         cudaStream_t stream) {
+         int* launched, cudaStream_t stream) {
   Geo g;
   int num_keys, tiles;
   Workspace w;
@@ -575,12 +576,15 @@ int prep(const float* height, const int* cells, int* ws, int64_t ws_ints,
 
   cudaMemsetAsync(w.offsets, 0, sizeof(int) * (num_keys + 1 + kMaxChunks),
                   stream);
+  ++*launched;
   if (tiles > 0) {
     tile_hist_kernel<true><<<tiles, kThreads, 0, stream>>>(
         cells, nullptr, nullptr, g, 0, w.offsets, w.chunks, w.hist, tiles);
+    ++*launched;
   }
   scan_kernel<<<kRadix + chunks, kScanThreads, 0, stream>>>(
       w.hist, tiles, w.totals, w.offsets, w.chunks, num_keys, g.chunk_bits);
+  ++*launched;
   if (tiles == 0) return static_cast<int>(cudaGetLastError());
   for (int pass = 0; pass < passes; ++pass) {
     const bool last = pass == passes - 1;
@@ -591,6 +595,7 @@ int prep(const float* height, const int* cells, int* ws, int64_t ws_ints,
     if (pass == 0) {
       launch_place<true>(last, tiles, cells, nullptr, height, m_ptr, g, 0, w,
                          out, w_out, order, stream);
+      ++*launched;
       continue;
     }
     tile_hist_kernel<false><<<tiles, kThreads, 0, stream>>>(
@@ -599,26 +604,31 @@ int prep(const float* height, const int* cells, int* ws, int64_t ws_ints,
         w.hist, tiles, w.totals, nullptr, nullptr, num_keys, g.chunk_bits);
     launch_place<false>(last, tiles, nullptr, in, w.wbuf[(pass + 1) & 1], m_ptr,
                         g, shift, w, out, w_out, order, stream);
+    *launched += 3;
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int CS>
 void launch_pool(const float* context, const Workspace& w, float* out, int p,
-                 int num_keys, int c, cudaStream_t stream) {
+                 int num_keys, int c, int* launched, cudaStream_t stream) {
   const int64_t warps = pool_chunks(p);
   if (warps > 0) {
     pool_kernel<CS><<<(warps + kPoolWarps - 1) / kPoolWarps, kPoolWarps * 32, 0,
                       stream>>>(context, w.pairs, w.keys, w.offsets, out,
                                 w.partials, num_keys, c);
+    ++*launched;
   }
   finish_kernel<CS><<<(num_keys + kPoolWarps - 1) / kPoolWarps, kPoolWarps * 32,
                       0, stream>>>(w.offsets, w.partials, out, num_keys, c);
+  ++*launched;
 }
 
-// The pool over a workspace the prep has filled.
+// The pool over a workspace the prep has filled; counts its launches into
+// *launched.
 int pool(const float* context, int* ws, int64_t ws_ints, float* out, int batch,
-         int num_cells, int n, int j, int hw, int c, cudaStream_t stream) {
+         int num_cells, int n, int j, int hw, int c, int* launched,
+         cudaStream_t stream) {
   Geo g;
   int num_keys, tiles;
   Workspace w;
@@ -627,13 +637,14 @@ int pool(const float* context, int* ws, int64_t ws_ints, float* out, int batch,
              &w))
     return -1;
   if (c <= 32) {
-    launch_pool<1>(context, w, out, g.p, num_keys, c, stream);
+    launch_pool<1>(context, w, out, g.p, num_keys, c, launched, stream);
   } else if (c <= 64) {
-    launch_pool<2>(context, w, out, g.p, num_keys, c, stream);
+    launch_pool<2>(context, w, out, g.p, num_keys, c, launched, stream);
   } else if (c <= 96) {
-    launch_pool<3>(context, w, out, g.p, num_keys, c, stream);
+    launch_pool<3>(context, w, out, g.p, num_keys, c, launched, stream);
   } else {
-    launch_pool<kMaxChannelSlots>(context, w, out, g.p, num_keys, c, stream);
+    launch_pool<kMaxChannelSlots>(context, w, out, g.p, num_keys, c, launched,
+                                  stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -642,7 +653,9 @@ int pool(const float* context, int* ws, int64_t ws_ints, float* out, int batch,
 
 // Every entry returns -1 for arguments it refuses, else 0 or the CUDA
 // error code of its launches. `ws` is an int32 workspace of `ws_ints` ints
-// of the size `lift_splat_layout` gives.
+// of the size `lift_splat_layout` gives. A launching entry adds to
+// *launched the number of launches it made (kernels and the memset: 3 x
+// radix passes + 1 for the prep, 2 for the pool).
 
 // out[0]: the workspace's size in ints for these shapes (a pool of C
 // channels; c = 0 for the prep alone); out[1]: the int offset in it of the
@@ -664,9 +677,9 @@ extern "C" int lift_splat_layout(int batch, int num_cells, int n, int j,
 extern "C" int lift_prep_launch(const float* height, const int* cells,
                                 int* ws, long long ws_ints, int* order,
                                 int batch, int num_cells, int n, int j, int hw,
-                                cudaStream_t stream) {
+                                int* launched, cudaStream_t stream) {
   return prep(height, cells, ws, ws_ints, order, batch, num_cells, n, j, hw,
-              stream);
+              launched, stream);
 }
 
 // The pool alone, over a workspace the prep has filled for the same
@@ -674,8 +687,9 @@ extern "C" int lift_prep_launch(const float* height, const int* cells,
 extern "C" int lift_pool_launch(const float* context, int* ws,
                                 long long ws_ints, float* out, int batch,
                                 int num_cells, int n, int j, int hw, int c,
-                                cudaStream_t stream) {
-  return pool(context, ws, ws_ints, out, batch, num_cells, n, j, hw, c, stream);
+                                int* launched, cudaStream_t stream) {
+  return pool(context, ws, ws_ints, out, batch, num_cells, n, j, hw, c,
+              launched, stream);
 }
 
 // Prep and pool. height: (N, J, HW) fp32; context: (N, HW, C) fp32;
@@ -683,10 +697,12 @@ extern "C" int lift_pool_launch(const float* context, int* ws,
 extern "C" int lift_splat_launch(const float* height, const float* context,
                                  const int* cells, int* ws, long long ws_ints,
                                  float* out, int batch, int num_cells, int n,
-                                 int j, int hw, int c, cudaStream_t stream) {
+                                 int j, int hw, int c, int* launched,
+                                 cudaStream_t stream) {
   if (c <= 0 || c > 32 * kMaxChannelSlots) return -1;
   const int err = prep(height, cells, ws, ws_ints, nullptr, batch, num_cells,
-                       n, j, hw, stream);
+                       n, j, hw, launched, stream);
   if (err != 0) return err;
-  return pool(context, ws, ws_ints, out, batch, num_cells, n, j, hw, c, stream);
+  return pool(context, ws, ws_ints, out, batch, num_cells, n, j, hw, c,
+              launched, stream);
 }

@@ -11,7 +11,8 @@
 // What bounds it on an H100: memory. A row reads D * 8 bytes and writes
 // k * 8 bytes (90 bins and k = 16 at the main path: 848 bytes a row).
 //
-// Design: a block takes kThreads / L contiguous rows, L lanes a row.
+// Design: a block takes kThreads / L contiguous rows, L = 2 or 4 lanes a
+// row.
 //   - The block's heights, contiguous in (N, HW, D), come into shared
 //     memory as one `cp.async.bulk` completing on an mbarrier (its last
 //     bytes, when the size is no multiple of 16, by plain loads).
@@ -152,40 +153,30 @@ topk_cells_kernel(const float* __restrict__ h, const int* __restrict__ cells,
   }
   __syncthreads();  // the heights are dead; s_v and s_b take their place
 
-  if (L == 1) {
+  for (int r = 0; r < k; ++r) {
+    int bv = lv[0];
+    int bb = lb[0];
 #pragma unroll
-    for (int r = 0; r < KMAX; ++r) {
-      if (r < k) {
-        s_v[r * kPix + pix] = unord(lv[r]);
-        s_b[r * kPix + pix] = lb[r];
+    for (int o = L / 2; o > 0; o >>= 1) {
+      const int ov = __shfl_xor_sync(0xffffffffu, bv, o);
+      const int ob = __shfl_xor_sync(0xffffffffu, bb, o);
+      if (ov > bv || (ov == bv && ob < bb)) {
+        bv = ov;
+        bb = ob;
       }
     }
-  } else {
-    for (int r = 0; r < k; ++r) {
-      int bv = lv[0];
-      int bb = lb[0];
+    if (lb[0] == bb) {  // this lane owned the winner: pop it
 #pragma unroll
-      for (int o = L / 2; o > 0; o >>= 1) {
-        const int ov = __shfl_xor_sync(0xffffffffu, bv, o);
-        const int ob = __shfl_xor_sync(0xffffffffu, bb, o);
-        if (ov > bv || (ov == bv && ob < bb)) {
-          bv = ov;
-          bb = ob;
-        }
+      for (int i = 0; i < KMAX - 1; ++i) {
+        lv[i] = lv[i + 1];
+        lb[i] = lb[i + 1];
       }
-      if (lb[0] == bb) {  // this lane owned the winner: pop it
-#pragma unroll
-        for (int i = 0; i < KMAX - 1; ++i) {
-          lv[i] = lv[i + 1];
-          lb[i] = lb[i + 1];
-        }
-        lv[KMAX - 1] = kSentinel;
-        lb[KMAX - 1] = INT32_MAX;
-      }
-      if (sub == r % L) {
-        s_v[r * kPix + pix] = unord(bv);
-        s_b[r * kPix + pix] = bb;
-      }
+      lv[KMAX - 1] = kSentinel;
+      lb[KMAX - 1] = INT32_MAX;
+    }
+    if (sub == r % L) {
+      s_v[r * kPix + pix] = unord(bv);
+      s_b[r * kPix + pix] = bb;
     }
   }
   __syncthreads();
@@ -239,10 +230,8 @@ int launch_lanes(int lanes, const float* h, const int* cells, float* out_vals,
                  int* out_cells, int rows, int d, int k, int hw,
                  cudaStream_t stream) {
   switch (lanes) {
-    case 1: return launch<KMAX, 1>(h, cells, out_vals, out_cells, rows, d, k, hw, stream);
     case 2: return launch<KMAX, 2>(h, cells, out_vals, out_cells, rows, d, k, hw, stream);
     case 4: return launch<KMAX, 4>(h, cells, out_vals, out_cells, rows, d, k, hw, stream);
-    case 8: return launch<KMAX, 8>(h, cells, out_vals, out_cells, rows, d, k, hw, stream);
     default: return -1;
   }
 }
@@ -250,7 +239,7 @@ int launch_lanes(int lanes, const float* h, const int* cells, float* out_vals,
 }  // namespace
 
 // h, cells: (N, HW, D) contiguous, h 16-byte aligned; out_vals, out_cells:
-// (N, k, HW). rows = N * HW; lanes per row in {1, 2, 4, 8}. Requires
+// (N, k, HW). rows = N * HW; lanes per row 2 or 4. Requires
 // D <= 256 and 0 < k <= min(D, 32). Returns -1 for bad arguments, else the
 // launch's CUDA error code.
 extern "C" int topk_cells_launch(const float* h, const int* cells,

@@ -27,20 +27,24 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)
 # C entry points: name -> argtypes. Every function returns 0 or the CUDA
-# error of its launches (-1 for arguments it refuses).
+# error of its launches (-1 for arguments it refuses); `launched` gets the
+# number of launches a call made.
 SIGNATURES = {
     # (h, cells, out_vals, out_cells, rows, d, k, hw, lanes, stream)
     "topk_cells_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # (batch, num_cells, n, j, hw, c, out[2])
     "lift_splat_layout": [_I] * 6 + [_P],
-    # (height, cells, ws, ws_ints, order, batch, num_cells, n, j, hw, stream)
-    "lift_prep_launch": [_P, _P, _P, _L, _P] + [_I] * 5 + [_P],
-    # (context, ws, ws_ints, out, batch, num_cells, n, j, hw, c, stream)
-    "lift_pool_launch": [_P, _P, _L, _P] + [_I] * 6 + [_P],
+    # (height, cells, ws, ws_ints, order, batch, num_cells, n, j, hw,
+    #  launched, stream)
+    "lift_prep_launch": [_P, _P, _P, _L, _P] + [_I] * 5 + [_IP, _P],
+    # (context, ws, ws_ints, out, batch, num_cells, n, j, hw, c, launched,
+    #  stream)
+    "lift_pool_launch": [_P, _P, _L, _P] + [_I] * 6 + [_IP, _P],
     # (height, context, cells, ws, ws_ints, out, batch, num_cells, n, j, hw,
-    #  c, stream)
-    "lift_splat_launch": [_P, _P, _P, _P, _L, _P] + [_I] * 6 + [_P],
+    #  c, launched, stream)
+    "lift_splat_launch": [_P, _P, _P, _P, _L, _P] + [_I] * 6 + [_IP, _P],
     # (x, w1, b1, w2, b2, w3, b3, out, batch, h, w, p, th, tw, smem, stream)
     "fused_bottleneck_launch": [_P] * 8 + [_I] * 7 + [_P],
     # (ctx, idx, out, m, hw, c, stream)

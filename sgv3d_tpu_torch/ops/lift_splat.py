@@ -8,11 +8,12 @@ of the cameras of b whose cell is `cell`; cell `num_cells` is the trash.
 Both layouts are (N, J, HW): J = k for the top-k lift, J = D for the
 all-bin lift. The prep places every live point (cell in [0, num_cells)) in
 its slot of the order of key b * num_cells + cell, ties by flat point
-index: a stable sort's order with the trash left out, built by an LSD radix
-of RADIX_BITS-bit digits over the key range's bits. On a CUDA tensor
+index: a stable sort's order with the trash left out, which the kernel
+builds by its own LSD radix over the key range's bits. On a CUDA tensor
 `lift_splat_forward` launches `csrc/lift_splat.cu` (prep and pool); on a
-CPU tensor it runs `lift_splat_plain`, the same prep (`lift_prep_plain`)
-and sum in plain torch. There is no fallback from one to the other.
+CPU tensor it runs `lift_splat_plain`, the same function in plain torch on
+`lift_prep_plain` (`torch.sort(stable=True)`). There is no fallback from
+one to the other.
 """
 from __future__ import annotations
 
@@ -24,44 +25,25 @@ import torch
 from sgv3d_tpu_torch.ops import cuda_lib
 
 MAX_CHANNELS = 128
-RADIX_BITS = 8          # the digit of the kernel's radix passes
 POINT_CHUNK = 1 << 20   # points a gather + index_add_ in the plain version
-
-
-def key_bits(batch: int, num_cells: int) -> int:
-    """Bits of the largest key batch * num_cells - 1 (at least 1)."""
-    return max(1, (batch * num_cells - 1).bit_length())
 
 
 def lift_prep_plain(cells: torch.Tensor, batch: int,
                     num_cells: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's prep in plain torch: (offsets (batch * num_cells + 1,),
     order (live points,)) int64. Segment g = b * num_cells + cell holds the
-    flat point indices order[offsets[g]:offsets[g + 1]], ascending; the
-    offsets are the exclusive scan of the per-key counts, and the order is
-    placed one RADIX_BITS digit at a time from the lowest, each pass a
-    stable counting placement."""
+    flat point indices order[offsets[g]:offsets[g + 1]], ascending: the
+    offsets are the exclusive scan of the per-key counts, the order a
+    stable sort of the live points' keys."""
     flat = cells.reshape(-1).long()
     per_b = flat.numel() // batch
-    order = torch.nonzero((flat >= 0) & (flat < num_cells)).reshape(-1)
-    keys = (order // per_b) * num_cells + flat[order]
+    live = torch.nonzero((flat >= 0) & (flat < num_cells)).reshape(-1)
+    keys = (live // per_b) * num_cells + flat[live]
     counts = torch.bincount(keys, minlength=batch * num_cells)
     offsets = torch.zeros(batch * num_cells + 1, dtype=torch.long,
                           device=cells.device)
     offsets[1:] = torch.cumsum(counts, 0)
-    radix = 1 << RADIX_BITS
-    for shift in range(0, key_bits(batch, num_cells), RADIX_BITS):
-        digit = (keys >> shift) & (radix - 1)
-        dcount = torch.bincount(digit, minlength=radix)
-        start = torch.cumsum(dcount, 0) - dcount
-        rank = torch.empty_like(digit)
-        for d in torch.nonzero(dcount).reshape(-1).tolist():
-            sel = digit == d
-            rank[sel] = torch.arange(int(dcount[d]), device=cells.device)
-        pos = start[digit] + rank
-        keys = torch.empty_like(keys).index_copy_(0, pos, keys)
-        order = torch.empty_like(order).index_copy_(0, pos, order)
-    return offsets, order
+    return offsets, live[torch.sort(keys, stable=True).indices]
 
 
 def lift_splat_plain(height: torch.Tensor, context: torch.Tensor,
@@ -140,11 +122,12 @@ def lift_splat_prep(height: torch.Tensor, cells: torch.Tensor, batch: int,
     ints, pairs_at = workspace(n, j, hw, batch, num_cells)
     ws = torch.empty(ints, dtype=torch.int32, device=h.device)
     order = torch.empty(n * j * hw, dtype=torch.int32, device=h.device)
+    launched = ctypes.c_int(0)
     cuda_lib.check(cuda_lib.library().lift_prep_launch(
         h.data_ptr(), cl.data_ptr(), ws.data_ptr(), ws.numel(),
-        order.data_ptr(), batch, num_cells, n, j, hw,
+        order.data_ptr(), batch, num_cells, n, j, hw, ctypes.byref(launched),
         torch.cuda.current_stream(h.device).cuda_stream), "lift_prep_launch")
-    lift_splat_prep.launches += 1
+    lift_splat_prep.launches += launched.value
     offsets = ws[:keys + 1]
     live = int(offsets[-1])
     pairs = ws[pairs_at:pairs_at + 2 * live].view(live, 2)
@@ -157,7 +140,9 @@ def lift_splat_forward(height: torch.Tensor, context: torch.Tensor,
                        num_cells: int) -> torch.Tensor:
     """height (N, J, HW) float32, context (N, HW, C) float32, cells
     (N, J, HW) int32 in [0, num_cells] -> (B, num_cells, C) float32.
-    N must be a multiple of `batch`; camera n pools into grid n // (N // B)."""
+    N must be a multiple of `batch`; camera n pools into grid n // (N // B).
+    On the card one call makes several launches (the prep's memset and
+    kernels, then the pool's), each counted in `launches`."""
     if height.device.type == "cpu":
         return lift_splat_plain(height, context, cells, batch, num_cells)
     _check("lift_splat_forward", height, cells, batch, context)
@@ -167,11 +152,12 @@ def lift_splat_forward(height: torch.Tensor, context: torch.Tensor,
     ws = torch.empty(workspace(n, j, hw, batch, num_cells, c)[0],
                      dtype=torch.int32, device=h.device)
     out = torch.empty((batch, num_cells, c), dtype=torch.float32, device=h.device)
+    launched = ctypes.c_int(0)
     cuda_lib.check(cuda_lib.library().lift_splat_launch(
         h.data_ptr(), ctx.data_ptr(), cl.data_ptr(), ws.data_ptr(), ws.numel(),
-        out.data_ptr(), batch, num_cells, n, j, hw, c,
+        out.data_ptr(), batch, num_cells, n, j, hw, c, ctypes.byref(launched),
         torch.cuda.current_stream(h.device).cuda_stream), "lift_splat_launch")
-    lift_splat_forward.launches += 1
+    lift_splat_forward.launches += launched.value
     return out
 
 

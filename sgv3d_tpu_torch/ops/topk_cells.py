@@ -13,7 +13,7 @@ from sgv3d_tpu_torch.ops import cuda_lib
 
 MAX_BINS = 256      # a block's rows of heights in shared memory
 MAX_K = 32          # the longest register-resident list a lane keeps
-LANES = (1, 2, 4, 8)    # lanes a row the kernel takes
+LANES = (2, 4)      # lanes a row the kernel takes
 
 
 def topk_cells_plain(height_hwd: torch.Tensor, cell_hwd: torch.Tensor,
@@ -28,8 +28,8 @@ def topk_cells_plain(height_hwd: torch.Tensor, cell_hwd: torch.Tensor,
 
 def lanes_per_pixel(rows: int) -> int:
     """Lanes that share a row: two from 32768 rows up (SGV3D-r50's 73728),
-    else four (r101's 18432), the fastest of LANES at those two shapes in
-    `tools/lift_probe.py`'s timing on an H100."""
+    else four (r101's 18432), the faster of LANES at each of those two
+    shapes in `tools/lift_probe.py`'s timing on an H100."""
     return 2 if rows >= 32768 else 4
 
 

@@ -7,12 +7,11 @@ Times with CUDA events (mean of 20 calls after a warm-up) K1 at each
 number of lanes a pixel (`topk_cells.LANES`, the kernel's own choice
 marked), and K2 whole and split into its prep (the key placement) and its
 pool, each launched alone, with each kernel's device time from
-`torch.profiler`; then K2 built with other constants (`VARIANTS`, copies
-of the source in `build/lift_probe/`), each held against the kernel as it
-is. Two kinds of cells: uniform ones with a quarter in the trash cell (the
-inputs of `chip_smoke.py`), and the cells of each exp's own synthetic rig
-after the pixel cull (skewed: near cells dense, far cells empty), with
-K1's top-k of seeded softmax heights feeding K2. It needs an NVIDIA GPU.
+`torch.profiler`. Two kinds of cells: uniform ones with a quarter in the
+trash cell (the inputs of `chip_smoke.py`), and the cells of each exp's own
+synthetic rig after the pixel cull (skewed: near cells dense, far cells
+empty), with K1's top-k of seeded softmax heights feeding K2. It needs an
+NVIDIA GPU.
 """
 from __future__ import annotations
 
@@ -35,12 +34,6 @@ from sgv3d_tpu_torch.ops.topk_cells import LANES, lanes_per_pixel, topk_with_cel
 from sgv3d_tpu_torch.ops.voxel_pooling import apply_pixel_cull, cull_pixel_indices
 
 BATCH = 4
-# constants of csrc/lift_splat.cu set to other values, to time beside the
-# source's own: points a lane in a prep tile, slots a pool warp, context
-# rows in flight
-VARIANTS = ({"kItems": 16}, {"kItems": 4}, {"kChunk": 32, "kUnroll": 1},
-            {"kChunk": 128, "kUnroll": 2}, {"kChunk": 64, "kUnroll": 4})
-OUT = cuda_lib.BUILD_ROOT.parent / "lift_probe"
 # exp, context channels into the lift
 EXPS = (("sgv3d_r50_128", 87), ("bevheight_dair_r101_128", 80))
 
@@ -116,18 +109,19 @@ def k2_launchers(height, ctx, cells, batch: int, num_cells: int):
                      dtype=torch.int32, device=dev)
     out = torch.empty((batch, num_cells, c), dtype=torch.float32, device=dev)
     lib = cuda_lib.library()
+    launched = ctypes.c_int(0)
 
     def prep():
         cuda_lib.check(lib.lift_prep_launch(
             height.data_ptr(), cells.data_ptr(), ws.data_ptr(), ws.numel(),
-            None, batch, num_cells, n, j, hw,
+            None, batch, num_cells, n, j, hw, ctypes.byref(launched),
             torch.cuda.current_stream(dev).cuda_stream), "lift_prep_launch")
 
     def pool():
         cuda_lib.check(lib.lift_pool_launch(
             ctx.data_ptr(), ws.data_ptr(), ws.numel(), out.data_ptr(), batch,
-            num_cells, n, j, hw, c, torch.cuda.current_stream(dev).cuda_stream),
-            "lift_pool_launch")
+            num_cells, n, j, hw, c, ctypes.byref(launched),
+            torch.cuda.current_stream(dev).cuda_stream), "lift_pool_launch")
 
     prep()
     return prep, pool
@@ -183,76 +177,6 @@ def _warm_up(dev) -> None:
     torch.cuda.synchronize()
 
 
-def _variant_name(over: dict) -> str:
-    return "_".join(f"{k}{v}" for k, v in over.items())
-
-
-def build_variants() -> dict:
-    """One nvcc a variant of csrc/lift_splat.cu (VARIANTS: constants set
-    to other values), all started together -> name: ctypes library."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    src = (cuda_lib.CSRC / "lift_splat.cu").read_text()
-    procs = {}
-    for over in VARIANTS:
-        text = src
-        for const, value in over.items():
-            text, n = re.subn(rf"constexpr int {const} = \d+;",
-                              f"constexpr int {const} = {value};", text)
-            if n != 1:
-                raise RuntimeError(f"lift_probe: no constant {const} to set")
-        name = _variant_name(over)
-        (OUT / f"{name}.cu").write_text(text)
-        procs[name] = subprocess.Popen(
-            [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o", str(OUT / f"{name}.so"),
-             str(OUT / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"lift_probe: nvcc failed for {name}:\n{log}")
-        lib = ctypes.CDLL(str(OUT / f"{name}.so"))
-        for fn in ("lift_splat_layout", "lift_prep_launch", "lift_pool_launch"):
-            getattr(lib, fn).argtypes = cuda_lib.SIGNATURES[fn]
-        libs[name] = lib
-    return libs
-
-
-def variants(libs, height, ctx, cells, batch, num_cells) -> str:
-    """Each variant's prep and pool time; its output is held against the
-    kernel's (within K2's tolerance, bitwise where the sum order is the
-    same)."""
-    n, j, hw = height.shape
-    c = ctx.shape[-1]
-    dev = height.device
-    ref = lift_splat_forward(height, ctx, cells, batch, num_cells)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    parts = []
-    for name, lib in libs.items():
-        ws = torch.empty(workspace(n, j, hw, batch, num_cells, c, lib)[0],
-                         dtype=torch.int32, device=dev)
-        out = torch.empty_like(ref)
-
-        def prep():
-            cuda_lib.check(lib.lift_prep_launch(
-                height.data_ptr(), cells.data_ptr(), ws.data_ptr(), ws.numel(),
-                None, batch, num_cells, n, j, hw, stream), "lift_prep_launch")
-
-        def pool():
-            cuda_lib.check(lib.lift_pool_launch(
-                ctx.data_ptr(), ws.data_ptr(), ws.numel(), out.data_ptr(), batch,
-                num_cells, n, j, hw, c, stream), "lift_pool_launch")
-
-        prep_ms = _cuda_ms(prep)
-        pool_ms = _cuda_ms(pool)
-        if not float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max()) + 1e-6:
-            raise AssertionError(f"lift_probe: variant {name} disagrees with the "
-                                 f"kernel")
-        same = "bitwise" if torch.equal(out, ref) else "within 1e-5"
-        parts.append(f"{name}: prep {prep_ms:.4f} pool {pool_ms:.4f} ({same})")
-    return "variants, ms: " + ", ".join(parts)
-
-
 def _line(label: str, parts: dict) -> str:
     return f"{label}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
 
@@ -265,7 +189,6 @@ def run(dev) -> list[str]:
         print(line, flush=True)
 
     g = torch.Generator(device=dev).manual_seed(0)
-    libs = build_variants()
     _warm_up(dev)
     for exp, c in EXPS:
         cfg = get_exp(exp)
@@ -317,7 +240,6 @@ def run(dev) -> list[str]:
                 per = ", ".join(f"{name} {us:.1f}" for name, us in kernel_us(fwd).items())
                 emit(f"{label}: device us a call by kernel: {per}; host enqueue "
                      f"{host_us(fwd):.1f} us a call")
-                emit(f"{label}: {variants(libs, *args)}")
     return lines
 
 

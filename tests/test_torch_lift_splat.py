@@ -11,10 +11,9 @@ import pytest
 import torch
 
 import sgv3d_tpu.ops.pallas_lift_splat as pls
-from chip_smoke import stable_order_reference
 from sgv3d_tpu.ops.voxel_pooling import lift_splat_pool
 from sgv3d_tpu_torch.ops.lift_splat import (
-    key_bits, lift_prep_plain, lift_splat_forward, lift_splat_plain)
+    lift_prep_plain, lift_splat_forward, lift_splat_plain)
 
 
 @pytest.fixture
@@ -65,8 +64,8 @@ CASES = {
     "empty_batch_element": (4, 3, 256, 8, 48, 2, lambda r, s: np.where(
         np.arange(s[0])[:, None, None] >= 2, 48, r.integers(0, 49, size=s))),
 }
-# prep-only cases: 20-bit keys (three radix passes) and a hot cell among
-# uniform ones, beside the skewed CASES
+# prep-only cases: 20-bit keys (three of the kernel's radix passes) and a
+# hot cell among uniform ones, beside the skewed CASES
 PREP_CASES = {
     "wide_keys": (16, 2, 256, 65536, 16,
                   lambda r, s: r.integers(0, 65537, size=s)),
@@ -87,20 +86,37 @@ def test_plain_matches_pallas_kernel(rng, _interpret, name):
         assert not got.any()
 
 
+def sort_searchsorted_reference(cells: torch.Tensor, batch: int,
+                                num_cells: int):
+    """K2's prep by `torch.sort(stable=True)` and `searchsorted`: the offsets of the live segments b * num_cells +
+    cell and the order of the live points, from a stable sort of the global
+    keys b * (num_cells + 1) + cell (cells in [0, num_cells]) with the trash
+    points dropped afterwards."""
+    n = cells.shape[0]
+    cams = torch.arange(n) // (n // batch)
+    keys = (cells.long() + (cams * (num_cells + 1))[:, None, None]).reshape(-1)
+    skeys, order = torch.sort(keys, stable=True)
+    bounds = torch.searchsorted(skeys, torch.arange(batch * (num_cells + 1) + 1))
+    lens = bounds.diff().reshape(batch, num_cells + 1)[:, :num_cells].reshape(-1)
+    offsets = torch.cat([lens.new_zeros(1), lens.cumsum(0)])
+    return offsets, order[skeys % (num_cells + 1) != num_cells]
+
+
 @pytest.mark.parametrize("name", sorted(CASES) + sorted(PREP_CASES))
 def test_prep_plain_matches_stable_sort(rng, name):
-    """The radix prep's offsets and order equal the stable sort's exactly."""
+    """The plain prep's offsets (per-key counts, scanned) and order equal
+    those of a stable sort of the global keys and `searchsorted` exactly."""
     if name in CASES:
         n, j, hw, _, cells, batch, gen = CASES[name]
     else:
         n, j, hw, cells, batch, gen = PREP_CASES[name]
     cell = torch.from_numpy(np.asarray(gen(rng, (n, j, hw)), np.int32))
     offsets, order = lift_prep_plain(cell, batch, cells)
-    ref_offsets, ref_order = stable_order_reference(cell, batch, cells)
+    ref_offsets, ref_order = sort_searchsorted_reference(cell, batch, cells)
     assert torch.equal(offsets, ref_offsets)
     assert torch.equal(order, ref_order)
-    if name == "wide_keys":
-        assert key_bits(batch, cells) == 20        # three 8-bit passes
+    if name == "wide_keys":     # three of the kernel's 8-bit radix passes
+        assert (batch * cells - 1).bit_length() == 20
 
 
 def test_plain_is_deterministic_and_the_cpu_wrapper(rng):
