@@ -20,7 +20,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      at each r50 stage's shape, with large positive BN biases, within
      2e-2 * max|plain| and bitwise equal across two runs, timed beside the
      plain version and the unfused cuDNN block; K4 the three gathers of the
-     probe, exactly ctx[idx]. Each kernel's entry carries its bound (bytes
+     probe, each bitwise its plain version (ctx[idx], zero rows outside
+     [0, HW); the one-hot's -0.0 as +0.0 and NaN from 0 x inf) at its card
+     cases, graph-timed. Each kernel's entry carries its bound (bytes
      over 3.35 TB/s or operations over the data sheet's peak, the larger),
      its launches a forward as counted in phase 5's main-path run, and one
      PyTorch call's time where one call computes the same function
@@ -355,8 +357,10 @@ def phase_build():
         for line in log.read_text().splitlines():
             if "Compiling entry function" in line:
                 name = _kernel_label(line.split("'")[1])
-            elif "registers" in line or "spill" in line:
+            elif "Used" in line or "spill stores" in line:
                 print(f"[build] ptxas {name}: {line.split(':', 1)[-1].strip()}")
+            elif "C7520" in line:   # wgmma serialized: a slow kernel
+                print(f"[build] ptxas: {line.strip()}")
 
 
 def _kernel_label(mangled: str) -> str:
@@ -641,39 +645,78 @@ def phase_k3(dev, smi) -> dict:
     return entry
 
 
+def time_k4(iters: int = 20) -> dict:
+    """Device time of each K4 formulation and of `ctx[idx]` at the probe's
+    shape, 20 calls in one CUDA graph (`_graph_ms`), from whichever
+    `sgv3d_tpu_torch` is first on `sys.path` (to time another tree's
+    kernels in the same call, load this file by path with that tree first)."""
+    from sgv3d_tpu_torch.tools import spike_gather
+
+    ctx, idx = spike_gather.probe_inputs(torch.device("cuda"))
+    times = {name: _graph_ms(lambda: fn(ctx, idx), iters)
+             for name, fn in spike_gather.FORMULATIONS}
+    times["ctx[idx]"] = _graph_ms(lambda: ctx[idx], iters)
+    return times
+
+
 def phase_k4(dev, smi) -> list[dict]:
     """K4, the gather probe, through its entry point: each formulation
-    exactly `ctx[idx]`; launches are counted over the probe's run, its
-    only path."""
+    bitwise equal to its plain version and to itself across two calls at
+    every card case (`spike_gather.check`); launches are counted over the
+    probe's run, its only path. "ms" is device time (`_graph_ms`: against
+    a 6.8 us bound the gap between back-to-back launches is a large share
+    of an event mean), "event_ms" the back-to-back event mean beside it.
+    The bound of all three is the function's bytes; the one-hot's entry
+    also carries two operations floors beside it: the dense product's, and
+    that of the products it issues (one m64n128k16 for each (m64 tile, k16
+    slab) that a row of the tile indexes)."""
     from sgv3d_tpu_torch.tools import spike_gather
 
     for _, fn in spike_gather.FORMULATIONS:
         fn.launches = 0
     rows = spike_gather.run(dev)
-    # the library yardstick and the bound on the probe's own inputs: ctx
-    # and idx read once, the gathered rows written once
+    launches = {name: fn.launches for name, fn in spike_gather.FORMULATIONS}
     ctx, idx = spike_gather.probe_inputs(dev)
-    library_ms = _cuda_ms(lambda: ctx[idx])
-    bound_ms, bound_by = _bound((ctx, idx, ctx[idx]), 0, PEAK_BF16_FLOPS)
+    graph = time_k4()
+    library_event_ms = _cuda_ms(lambda: ctx[idx])
+    # ctx and idx read once, the gathered rows written once
+    bytes_ms, _ = _bound((ctx, idx, ctx[idx]), 0, PEAK_BF16_FLOPS)
+    share = spike_gather.slab_share(idx, ctx.shape[0])
+    dense_flops = 2.0 * idx.numel() * ctx.shape[0] * ctx.shape[1]
+    tiles, slabs = -(-idx.numel() // 64), -(-ctx.shape[0] // 16)
+    issued_flops = round(share * tiles * slabs) * 2.0 * 64 * 16 * ctx.shape[1]
+    floors = {"dense_floor_ms": dense_flops / PEAK_BF16_FLOPS * 1e3,
+              "issued_floor_ms": issued_flops / PEAK_BF16_FLOPS * 1e3,
+              "issued_slab_share": share}
+    print(f"[kernels] K4 one-hot: {share:.4f} of (m64 tile, k16 slab) pairs "
+          f"issued (host count from idx); operations floor dense "
+          f"{floors['dense_floor_ms']:.4f} ms, issued "
+          f"{floors['issued_floor_ms']:.4f} ms at {PEAK_BF16_FLOPS / 1e12:.0f} "
+          f"TFLOP/s bf16")
     entries = []
-    for (name, fn), row, line in zip(spike_gather.FORMULATIONS, rows, (28, 34, 41)):
+    for (name, _), row, line in zip(spike_gather.FORMULATIONS, rows, (28, 34, 41)):
+        onehot = name == "onehot-mma"
         entries.append({"name": f"spike_gather.{name}", "route": "cuda",
                         "source": "sgv3d_tpu_torch/csrc/spike_gather.cu",
                         "replaces": f"tools/spike_pallas_gather.py:{line}",
-                        "launches": fn.launches, "launches_per_forward": 0,
-                        "max_abs_err": 0.0, "ms": row["ms"],
-                        "plain_ms": row["plain_ms"], "library_ms": library_ms,
-                        "library_note": "ctx[idx]", "bound_ms": bound_ms,
-                        "bound_by": bound_by,
+                        "launches": launches[name], "launches_per_forward": 0,
+                        "max_abs_err": 0.0, "ms": graph[name],
+                        "event_ms": row["ms"], "plain_ms": row["plain_ms"],
+                        "library_ms": graph["ctx[idx]"],
+                        "library_event_ms": library_event_ms,
+                        "library_note": "ctx[idx]", "bound_ms": bytes_ms,
+                        "bound_by": "bytes",
                         "shape": [spike_gather.N_CHUNKS, spike_gather.M,
-                                  spike_gather.C]})
-        if not fn.launches:
+                                  spike_gather.C], **(floors if onehot else {})})
+        if not launches[name]:
             raise AssertionError(f"K4 {name} was not launched")
         print(f"[kernels] K4 spike_gather {name} ({spike_gather.N_CHUNKS}, "
               f"{spike_gather.M}) rows of ({spike_gather.HW}, {spike_gather.C}):"
-              f" exact; kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, ctx[idx] {library_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}) ({smi})")
+              f" bitwise its plain version at its card cases; kernel "
+              f"{graph[name]:.4f} ms (event mean {row['ms']:.4f}), plain "
+              f"{row['plain_ms']:.4f} ms, ctx[idx] {graph['ctx[idx]']:.4f} ms "
+              f"(event mean {library_event_ms:.4f}), bound {bytes_ms:.4f} ms "
+              f"(bytes) ({smi})")
     return entries
 
 

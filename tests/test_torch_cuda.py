@@ -8,7 +8,9 @@ run in another order than `index_add_`) and bitwise equal across runs, its
 prep's order exactly that of `torch.sort(stable=True)`, its launches those
 of its radix passes; K3
 within 2e-2 * max|plain| (y1 and y2 rounded to bf16 after sums in another
-order) and bitwise equal across runs, its padding exact; K4 exact.
+order) and bitwise equal across runs, its padding exact; K4 bitwise equal
+to its plain version (zero rows for indices outside [0, HW); the one-hot's
+-0.0 as +0.0 and NaN from 0 x inf) and across runs.
 """
 import numpy as np
 import pytest
@@ -219,16 +221,27 @@ def test_fused_bottleneck_padding_is_zero_in_y1_space(cuda_device, h, w):
 
 
 def test_spike_gather_kernels_are_exact(cuda_device):
-    ctx, idx = spike_gather.probe_inputs(cuda_device)
+    """Each formulation bitwise its plain version (the take and the
+    take-along `gather_plain`, the one-hot `onehot_plain`) and bitwise the
+    same on two calls at every card case: the probe's shape, ragged HW and
+    M, out-of-range indices (zero rows; a whole block and an m64 tile of
+    them), all indices in one k16 slab, uniform indices, special values
+    (-0.0, subnormals, inf, NaN); the take and the take-along also at
+    C = 40, which the one-hot product refuses."""
+    for case, ctx, idx in spike_gather.card_cases(cuda_device):
+        for name, fn in spike_gather.FORMULATIONS:
+            ref = fn.plain(ctx, idx)
+            before = fn.launches
+            got, again = fn(ctx, idx), fn(ctx, idx)
+            assert fn.launches == before + 2, name
+            assert spike_gather.bitwise_equal(got, ref), (case, name)
+            assert spike_gather.bitwise_equal(got, again), (case, name)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    ctx = torch.randn(300, 40, generator=g, device=cuda_device).to(torch.bfloat16)
+    idx = torch.randint(-5, 305, (2, 333), generator=g, dtype=torch.int32,
+                        device=cuda_device)
     ref = spike_gather.gather_plain(ctx, idx)
-    for name, fn in spike_gather.FORMULATIONS:
-        before = fn.launches
-        got = fn(ctx, idx)
-        assert fn.launches == before + 1, name
-        assert torch.equal(got, ref), name
-        odd = fn(ctx, idx[:3, :77])             # rows not a multiple of a block
-        assert torch.equal(odd, ref[:3, :77]), name
-        outside = torch.tensor([-1, ctx.shape[0], 5], dtype=torch.int32,
-                               device=cuda_device)
-        got = fn(ctx, outside)                  # zero rows, no stray reads
-        assert not got[:2].any() and torch.equal(got[2], ctx[5]), name
+    for name, fn in spike_gather.FORMULATIONS[:2]:
+        assert spike_gather.bitwise_equal(fn(ctx, idx), ref), name
+    with pytest.raises(ValueError):
+        spike_gather.gather_onehot(ctx, idx)
