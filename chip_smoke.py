@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --time-k1   # K1's serving call alone (see below)
+    python3 chip_smoke.py --time-k2b  # K2b alone on its four timed cases
+    python3 chip_smoke.py --time-k2   # K2's forward on the same inputs
+    python3 chip_smoke.py --sweep-k2b # K2b's constants, the alternatives
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
   1. build the CUDA kernels from `sgv3d_tpu_torch/csrc` (one nvcc a source,
@@ -69,10 +72,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      that the DCN's offsets are float32 under bf16 autocast;
   7. the training path: K2b (the lift's backward, `csrc/lift_splat_bwd.cu`)
      against `lift_splat_backward_plain` at `sgv3d_r50_128`'s training
-     shape (height (2, 90, 20736), g (2, 16384, 87)), in the top-k layout
-     and at a ragged shape, within 1e-5 * max|ref| + 1e-6 and bitwise equal
-     across two runs, graph-timed beside the plain version and its bound
-     (K2's forward timed at the training shape too); the tiny BEVHeight and
+     shape (height (2, 90, 20736) on its 108 x 192 map, g (2, 16384, 87)):
+     on uniform cells (the worst case: a tile's points share next to no
+     rows) and on the rig's own cells (`rig_lift_cells`: 2,849,856 live
+     points), each in the all-bin and the top-k layout (K1's 16 picks),
+     and at a ragged 13 x 77 map, within 1e-5 * max|ref| + 1e-6, bitwise
+     equal across two runs, trash points' d_height exactly 0, graph-timed
+     beside the plain version and its bound, with the kernel's tile
+     (TH, TW, staged rows) and the share of live points it served from
+     staged rows (at least that of the tiles whose distinct cells fit,
+     `tile_distinct_cells`); K2's forward timed at the training shape too;
+     then C4 (`phase_c4`): K2 and K2b on four rig frames in one batch
+     bitwise each frame alone, both layouts, and the first stage of the
+     r101 serving forward (ResNet, neck, HeightNet, the lift, the head)
+     whose per-frame output differs between batch 2 and batch 4
+     (reported); the tiny BEVHeight and
      SGV3D, one float32 train step on the card against the CPU (losses
      and grad_norm within 1e-4 relative, each leaf's gradient within 1e-3
      of its own max |g|), all-bin and `train_lift_top_k=4` (with a planted
@@ -121,13 +135,22 @@ distributed run, a list by rank, `launches_dist_train` and
 shape, graph-timed, as JSON, for whichever `sgv3d_tpu_torch` is first on
 the path: copy this file into another tree's root (e.g. the parent
 commit's `git archive`) and run both alternately in one machine to
-compare that tree's K1 with this one's.
+compare that tree's K1 with this one's. `--time-k2b` does the same for
+K2b: five graph-timed means of 20 calls on each of the rig all-bin, rig
+top-k, uniform all-bin and uniform top-k cases of `k2b_cases`, with a
+digest of each case's outputs (two trees whose kernels give the same bits
+print the same digests); `--time-k2` times K2's forward on those inputs.
+`--sweep-k2b` builds K2b with each of K2B_VARIANTS' constants (tile
+shape, staging rows, block shape, rows in flight) from its own source,
+holds each variant's outputs bitwise to the package kernel's and prints
+their graph-timed means on the same four cases.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import hashlib
+import inspect
 import io
 import json
 import multiprocessing
@@ -1529,30 +1552,53 @@ def phase_eval_full(dev, smi) -> dict:
 # phase 7: training
 
 
-def phase_k2b(dev, smi) -> dict:
-    """K2b, the lift's backward, against `lift_splat_backward_plain` at the
-    training shape of `sgv3d_r50_128` (height (2, 90, 20736), g (2, 16384,
-    87); a quarter of the points trash), in the top-k layout at that width,
-    and at a ragged shape (3 batch elements of 2 cameras, J = 13, HW =
-    1001, C = 37): within 1e-5 * max|ref| + 1e-6 and bitwise equal across
-    two runs. Graph-timed beside the plain version and its bound; K2's
-    forward is timed at the training shape too (batch 2)."""
-    from sgv3d_tpu_torch.ops.lift_splat import (
-        lift_splat_backward, lift_splat_backward_plain, lift_splat_forward,
-        lift_splat_plain)
+K2B_RIG_EXP = "sgv3d_r50_128"   # the rig whose training-shape cells K2b gets
+K2B_TOP_K = 16
+
+
+def _bwd_takes_feat_w() -> bool:
+    """Whether this tree's `lift_splat_backward` takes the feature map's
+    width (`--time-k2b` also times trees from before it did)."""
+    from sgv3d_tpu_torch.ops.lift_splat import lift_splat_backward
+
+    return "feat_w" in inspect.signature(lift_splat_backward).parameters
+
+
+def rig_lift_cells(batch: int, seed: int = 0) -> tuple[torch.Tensor, int]:
+    """The all-bin training cells of K2B_RIG_EXP on `make_batch(cfg, batch,
+    seed)`'s rig, computed on the CPU (the same on every machine): (batch,
+    D, fH * fW) int32, and fW."""
+    from sgv3d_tpu_torch.configs import get_exp
+    from sgv3d_tpu_torch.data.synthetic import make_batch
+    from sgv3d_tpu_torch.nn.lss_fpn import compute_lift_cells
+
+    bb = get_exp(K2B_RIG_EXP).backbone
+    _, mats, *_ = make_batch(get_exp(K2B_RIG_EXP), batch, seed=seed)
+    m = {k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in mats.items()}
+    cells = compute_lift_cells(bb, m, train=True)
+    f_h, f_w = bb.feat_hw
+    return cells.reshape(batch, bb.num_height_bins, f_h * f_w).contiguous(), f_w
+
+
+def k2b_cases(dev) -> dict:
+    """K2b's inputs, tag -> (grad, height, context, cells, batch,
+    num_cells, feat_w): at the training shape of K2B_RIG_EXP (2 cameras,
+    90 bins, 108 x 192 pixels, C = 87, 128 x 128 cells), the uniform cells
+    (a quarter trash; "" all-bin, "_top_k" 16 bins), which share no rows
+    within a tile (the worst case), and the rig's own ("_rig": the all-bin
+    cells of `rig_lift_cells`; "_rig_top_k": the cells of K1's 16 picks of
+    seeded random heights over them, the picks' heights as heights); then
+    "_ragged": 3 batch elements of 2 cameras, J = 13, a 13 x 77 map (HW =
+    1001, neither side a multiple of the tile), C = 37. g is seeded in every
+    case."""
+    from sgv3d_tpu_torch.ops.topk_cells import topk_with_cells
 
     g = torch.Generator(device=dev).manual_seed(1)
-    entry = {"name": "lift_splat_bwd", "route": "cuda",
-             "source": "sgv3d_tpu_torch/csrc/lift_splat_bwd.cu",
-             "replaces": "sgv3d_tpu/ops/voxel_pooling.py:142",
-             "max_abs_err": 0.0, "library_ms": None,
-             "library_note": "none: no single PyTorch call gathers g rows at "
-                             "cells and reduces them both ways"}
-    k2_train = {}
-    for tag, (batch, n, j, hw, c, num_cells) in (
-            ("", (2, 2, 90, 20736, 87, 16384)),
-            ("_top_k", (2, 2, 16, 20736, 87, 16384)),
-            ("_ragged", (3, 6, 13, 1001, 37, 777))):
+    cases = {}
+    for tag, (batch, n, j, hw, c, num_cells, feat_w) in (
+            ("", (2, 2, 90, 20736, 87, 16384, 192)),
+            ("_top_k", (2, 2, K2B_TOP_K, 20736, 87, 16384, 192)),
+            ("_ragged", (3, 6, 13, 1001, 37, 777, 77))):
         height = torch.rand(n, j, hw, generator=g, device=dev)
         ctx = torch.randn(n, hw, c, generator=g, device=dev)
         cells = torch.randint(0, num_cells, (n, j, hw), generator=g, device=dev,
@@ -1560,8 +1606,229 @@ def phase_k2b(dev, smi) -> dict:
         trash = torch.rand(n, j, hw, generator=g, device=dev) < 0.25
         cells = torch.where(trash, num_cells, cells).to(torch.int32)
         grad = torch.randn(batch, num_cells, c, generator=g, device=dev)
-        args = (grad, height, ctx, cells, batch, num_cells)
-        out1, out2 = lift_splat_backward(*args), lift_splat_backward(*args)
+        cases[tag] = (grad, height, ctx, cells, batch, num_cells, feat_w)
+    rig, f_w = rig_lift_cells(2)
+    rig = rig.to(dev)
+    n, d, hw = rig.shape
+    c, num_cells = 87, 16384
+    g = torch.Generator(device=dev).manual_seed(2)
+    grad = torch.randn(n, num_cells, c, generator=g, device=dev)
+    ctx = torch.randn(n, hw, c, generator=g, device=dev)
+    height = torch.rand(n, d, hw, generator=g, device=dev)
+    cases["_rig"] = (grad, height, ctx, rig, n, num_cells, f_w)
+    h_hwd = torch.rand(n, hw, d, generator=g, device=dev)
+    vals, picked, _ = topk_with_cells(h_hwd, rig.transpose(1, 2).contiguous(),
+                                      K2B_TOP_K, return_bins=True)
+    cases["_rig_top_k"] = (grad, vals, ctx, picked, n, num_cells, f_w)
+    return {k: cases[k] for k in ("", "_top_k", "_rig", "_rig_top_k", "_ragged")}
+
+
+def tile_distinct_cells(cells: torch.Tensor, num_cells: int, feat_w: int,
+                        tile: tuple[int, int]) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per tile of tile[0] x tile[1] pixels of each camera of cells (N, J,
+    fH * feat_w) (cameras major, tile rows, tile columns): the distinct live
+    cells (in [0, num_cells)) and the live points, int64."""
+    n, _, hw = cells.shape
+    f_h = hw // feat_w
+    t_y, t_x = -(-f_h // tile[0]), -(-feat_w // tile[1])
+    y = torch.arange(f_h, device=cells.device) // tile[0]
+    x = torch.arange(feat_w, device=cells.device) // tile[1]
+    tile_of = (y[:, None] * t_x + x[None, :]).reshape(-1)
+    tile_of = tile_of + torch.arange(n, device=cells.device)[:, None] * (t_y * t_x)
+    c = cells.long()
+    live = (c >= 0) & (c < num_cells)
+    tiles = tile_of[:, None, :].expand_as(c)[live]
+    distinct = torch.bincount(torch.unique(tiles * num_cells + c[live]) // num_cells,
+                              minlength=n * t_y * t_x)
+    return distinct, torch.bincount(tiles, minlength=n * t_y * t_x)
+
+
+def _digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def time_k2b(iters: int = 20) -> dict:
+    """K2b graph-timed on the four cases of `k2b_cases` that are not ragged
+    (rig all-bin, rig top-k, uniform all-bin, uniform top-k), for whichever
+    tree is first on `sys.path` (`--time-k2b`), with a digest of each
+    case's outputs (trees whose kernels give the same bits give the same
+    digests)."""
+    from sgv3d_tpu_torch.ops.lift_splat import lift_splat_backward
+
+    cases = k2b_cases(torch.device("cuda"))
+    tiled = _bwd_takes_feat_w()
+    out = {}
+    for tag, name in (("_rig", "rig"), ("_rig_top_k", "rig_top_k"),
+                      ("", "uniform"), ("_top_k", "uniform_top_k")):
+        *args, feat_w = cases[tag]
+        kw = {"feat_w": feat_w} if tiled else {}
+        out[name] = {"ms": _graph_ms(lambda: lift_splat_backward(*args, **kw), iters),
+                     "digest": _digest(*lift_splat_backward(*args, **kw))}
+    return out
+
+
+def time_k2(iters: int = 20) -> dict:
+    """K2's forward graph-timed on the inputs of `time_k2b`'s cases, for
+    whichever tree is first on `sys.path` (`--time-k2`)."""
+    from sgv3d_tpu_torch.ops.lift_splat import lift_splat_forward
+
+    cases = k2b_cases(torch.device("cuda"))
+    out = {}
+    for tag, name in (("_rig", "rig"), ("_rig_top_k", "rig_top_k"),
+                      ("", "uniform"), ("_top_k", "uniform_top_k")):
+        _, height, ctx, cells, batch, num_cells, _ = cases[tag]
+        args = (height, ctx, cells, batch, num_cells)
+        out[name] = {"ms": _graph_ms(lambda: lift_splat_forward(*args), iters),
+                     "digest": _digest(lift_splat_forward(*args))}
+    return out
+
+
+# `--sweep-k2b`: K2b built with other constants from its own source, each
+# variant's outputs held bitwise to the package kernel's (the per-point
+# arithmetic does not depend on them). name -> constants replaced.
+K2B_VARIANTS = {
+    "chosen": {},
+    "tile_4x8": {"kTileH": 4},
+    "tile_4x16": {"kTileH": 4, "kTileW": 16},
+    "rows_256": {"kMaxRows": 256},
+    "narrow_all_j": {"kNarrowJ": 256},     # the all-bin layout two blocks an SM
+    "wide_all_j": {"kNarrowJ": 0},         # the top-k layout one block an SM
+    "unroll_2": {"kUnroll": 2},
+    "unroll_8": {"kUnroll": 8},
+}
+
+
+K2B_PHASES = ("load", "hash", "stage", "compute", "write")
+
+
+def _with_phase_clocks(src: str) -> str:
+    """K2b's source with thread 0 of each block recording clock64() since
+    the block's start after each of its barriers and at its end (the five
+    steps of the source note) into `k2b_phase_clocks`, read back by the
+    exported `k2b_phase_read`."""
+    src = src.replace("namespace {\n", "__device__ long long k2b_phase_clocks[1 << 16];\n"
+                      "namespace {\n", 1)
+    head = "  extern __shared__ __align__(16) unsigned char s_raw[];\n"
+    src = src.replace(head, head + "  const long long t_start = clock64();\n"
+                      "  int t_mark = 0;\n", 1)
+    i = src.index("__global__ void __launch_bounds__")
+    j = src.index("template <bool kNarrow, int CS>\nint launch(")
+    rec = ("  if (threadIdx.x == 0) k2b_phase_clocks[(blockIdx.y * gridDim.x + "
+           "blockIdx.x) * 8 + t_mark++] = clock64() - t_start;\n")
+    body = src[i:j].replace("  __syncthreads();\n", "  __syncthreads();\n" + rec)
+    k = body.rindex("}\n")
+    return (src[:i] + body[:k] + rec + body[k:] + src[j:] +
+            '\nextern "C" int k2b_phase_read(long long* out, int n) {\n'
+            "  return static_cast<int>(cudaMemcpyFromSymbol(out, k2b_phase_clocks, n * 8));\n}\n")
+
+
+def sweep_k2b(iters: int = 20) -> dict:
+    """Each of K2B_VARIANTS compiled from `csrc/lift_splat_bwd.cu` with its
+    constants replaced (one nvcc a variant, all started together, into
+    `build/k2b_sweep/`), graph-timed on `time_k2b`'s four cases; a variant
+    whose outputs differ from the package kernel's in any bit raises. The
+    chosen constants are also built with `_with_phase_clocks`: the mean
+    cycles a block spends in each of K2B_PHASES, per case."""
+    import ctypes
+
+    from sgv3d_tpu_torch.ops import cuda_lib
+    from sgv3d_tpu_torch.ops.lift_splat import lift_splat_backward
+
+    src = (cuda_lib.CSRC / "lift_splat_bwd.cu").read_text()
+    src = re.sub(r"static_assert\(rows_offset\([^;]*;", "", src)
+    out_dir = Path(__file__).resolve().parent / "build" / "k2b_sweep"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name, consts in {**K2B_VARIANTS, "phases": None}.items():
+        text = src if consts is not None else _with_phase_clocks(src)
+        for key, value in (consts or {}).items():
+            text, n = re.subn(rf"constexpr int {key} = [^;]+;",
+                              f"constexpr int {key} = {value};", text)
+            if n != 1:
+                raise AssertionError(f"K2b sweep: no constant {key}")
+        cu, so = out_dir / f"{name}.cu", out_dir / f"{name}.so"
+        cu.write_text(text)
+        jobs[name] = (so, subprocess.Popen(
+            [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"K2b sweep: {name} failed to build:\n{log}")
+        lib = ctypes.CDLL(str(so))
+        lib.lift_splat_bwd_launch.argtypes = cuda_lib.SIGNATURES["lift_splat_bwd_launch"]
+        lib.lift_splat_bwd_plan.argtypes = cuda_lib.SIGNATURES["lift_splat_bwd_plan"]
+        libs[name] = lib
+    cases = k2b_cases(torch.device("cuda"))
+    result = {}
+    for name, lib in libs.items():
+        for tag, label in (("_rig", "rig"), ("_rig_top_k", "rig_top_k"),
+                           ("", "uniform"), ("_top_k", "uniform_top_k")):
+            grad, height, ctx, cells, batch, num_cells, feat_w = cases[tag]
+            n, j, hw = height.shape
+            c = ctx.shape[-1]
+            d_h, d_c = torch.empty_like(height), torch.empty_like(ctx)
+            launched = ctypes.c_int(0)
+
+            def call():
+                cuda_lib.check(lib.lift_splat_bwd_launch(
+                    grad.data_ptr(), height.data_ptr(), ctx.data_ptr(),
+                    cells.data_ptr(), d_h.data_ptr(), d_c.data_ptr(), None, batch,
+                    num_cells, n, j, hw, feat_w, c, ctypes.byref(launched),
+                    torch.cuda.current_stream().cuda_stream), f"K2b sweep {name}")
+            call()
+            ref = lift_splat_backward(grad, height, ctx, cells, batch, num_cells, feat_w)
+            if not (torch.equal(ref[0], d_h) and torch.equal(ref[1], d_c)):
+                raise AssertionError(f"K2b sweep: {name} {label} differs from the "
+                                     "package kernel")
+            plan = (ctypes.c_int * 5)()
+            lib.lift_splat_bwd_plan(j, c, plan)
+            row = {"ms": _graph_ms(call, iters), "rows": plan[2],
+                   "blocks_per_sm": plan[4]}
+            if name == "phases":
+                call()
+                torch.cuda.synchronize()
+                blocks = -(-(hw // feat_w) // 8) * -(-feat_w // 8) * n
+                clocks = np.zeros((blocks, 8), np.int64)
+                lib.k2b_phase_read(ctypes.c_void_p(clocks.ctypes.data), clocks.size)
+                ends = clocks[:, :len(K2B_PHASES)]
+                steps = np.diff(ends, axis=1, prepend=0)
+                row["cycles_a_block"] = dict(zip(K2B_PHASES, steps.mean(0).tolist()))
+            result.setdefault(name, {})[label] = row
+    return result
+
+
+def phase_k2b(dev, smi) -> dict:
+    """K2b, the lift's backward, against `lift_splat_backward_plain` on each
+    case of `k2b_cases` (uniform and rig cells, all-bin and top-k, and
+    ragged): within 1e-5 * max|ref| + 1e-6, bitwise equal across two runs,
+    trash points' d_height exactly 0. Graph-timed beside the plain version
+    and its bound, with the share of live points the kernel read from its
+    staged rows (`served`), at least the share of the tiles whose distinct
+    cells all fit its rows; K2's forward is timed at the training shape too
+    (batch 2)."""
+    from sgv3d_tpu_torch.ops.lift_splat import (
+        backward_plan, lift_splat_backward, lift_splat_backward_plain,
+        lift_splat_forward, lift_splat_plain)
+
+    entry = {"name": "lift_splat_bwd", "route": "cuda",
+             "source": "sgv3d_tpu_torch/csrc/lift_splat_bwd.cu",
+             "replaces": "sgv3d_tpu/ops/voxel_pooling.py:142",
+             "max_abs_err": 0.0, "library_ms": None,
+             "library_note": "none: no single PyTorch call gathers g rows at "
+                             "cells and reduces them both ways"}
+    k2_train = {}
+    for tag, (grad, height, ctx, cells, batch, num_cells, feat_w) in k2b_cases(dev).items():
+        n, j, hw = height.shape
+        c = ctx.shape[-1]
+        args = (grad, height, ctx, cells, batch, num_cells, feat_w)
+        served = torch.zeros(1, dtype=torch.int32, device=dev)
+        out1 = lift_splat_backward(*args, served=served)
+        out2 = lift_splat_backward(*args)
         ref = lift_splat_backward_plain(*args)
         torch.cuda.synchronize()
         errs = []
@@ -1573,7 +1840,17 @@ def phase_k2b(dev, smi) -> dict:
             if not err <= bound:
                 raise AssertionError(f"K2b{tag} {name}: max|err| {err} > {bound}")
             errs.append((err, bound))
-        live = int((~trash).sum())
+        dead = (cells < 0) | (cells >= num_cells)
+        if bool((out1[0][dead] != 0).any()):
+            raise AssertionError(f"K2b{tag}: a trash point got a nonzero d_height")
+        live = int((~dead).sum())
+        plan = backward_plan(j, c)
+        distinct, points = tile_distinct_cells(cells, num_cells, feat_w, plan["tile"])
+        fits = int(points[distinct <= plan["rows"]].sum())
+        share = int(served) / live
+        if not fits <= int(served) <= live:
+            raise AssertionError(f"K2b{tag}: {int(served)} points served from staged "
+                                 f"rows, not within [{fits}, {live}]")
         ms = _graph_ms(lambda: lift_splat_backward(*args))
         plain_ms = _cuda_ms(lambda: lift_splat_backward_plain(*args), iters=5)
         # a dot product and an axpy of C channels a live point, fp32 cores
@@ -1583,13 +1860,22 @@ def phase_k2b(dev, smi) -> dict:
         entry.update({"ms" + tag: ms, "plain_ms" + tag: plain_ms,
                       "bound_ms" + tag: bound_ms, "bound_by" + tag: bound_by,
                       "shape" + tag: [batch, n, j, hw, c, num_cells],
-                      "live_points" + tag: live})
+                      "feat_w" + tag: feat_w, "live_points" + tag: live,
+                      "smem_share" + tag: share,
+                      "tile" + tag: [*plan["tile"], plan["rows"]]})
+        q = torch.quantile(distinct.double(), torch.tensor([0.5, 0.9], dtype=torch.float64,
+                                                           device=distinct.device))
         print(f"[train] K2b lift_splat_bwd{tag or ' (training shape)'} g "
-              f"({batch}, {num_cells}, {c}), height ({n}, {j}, {hw}), {live} live "
-              f"points: d_height max|err| {errs[0][0]:.3e} <= {errs[0][1]:.3e}, "
-              f"d_ctx {errs[1][0]:.3e} <= {errs[1][1]:.3e}, bitwise deterministic; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}) ({smi})")
+              f"({batch}, {num_cells}, {c}), height ({n}, {j}, {hw}), fW {feat_w}, "
+              f"{live} live points: d_height max|err| {errs[0][0]:.3e} <= "
+              f"{errs[0][1]:.3e}, d_ctx {errs[1][0]:.3e} <= {errs[1][1]:.3e}, "
+              f"bitwise deterministic; tile {plan['tile'][0]}x{plan['tile'][1]}, "
+              f"{plan['rows']} rows, {plan['smem']} B, {plan['blocks_per_sm']} "
+              f"block(s) an SM: distinct cells a tile p50 "
+              f"{float(q[0]):.0f} p90 {float(q[1]):.0f} max {int(distinct.max())}, "
+              f"served from staged rows {share:.4f} (tiles that fit: "
+              f"{fits / live:.4f}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}) ({smi})")
         if tag == "":
             fwd = (height, ctx, cells, batch, num_cells)
             out, ref_f = lift_splat_forward(*fwd), lift_splat_plain(*fwd)
@@ -1607,6 +1893,131 @@ def phase_k2b(dev, smi) -> dict:
                   f"bound {k2_train['bound_ms']:.4f} ms ({smi})")
     entry["k2_train"] = k2_train
     return entry
+
+
+C4_FRAMES = 4
+
+
+def lift_batch_invariance(dev) -> dict:
+    """K2 (forward) and K2b (backward) on C4_FRAMES frames of K2B_RIG_EXP's
+    rig in one batch, and on each frame alone: the number of frames whose
+    outputs differ in any bit, all-bin and top-k (K1's 16 picks of seeded
+    random heights). Both kernels sum each frame apart (K2's pool chunks
+    start at each batch element, K2b's tiles lie in one camera), so every
+    count should be 0."""
+    from sgv3d_tpu_torch.ops.lift_splat import lift_splat_backward, lift_splat_forward
+    from sgv3d_tpu_torch.ops.topk_cells import topk_with_cells
+
+    cells, f_w = rig_lift_cells(C4_FRAMES)
+    cells = cells.to(dev)
+    n, d, hw = cells.shape
+    c, num_cells = 87, 16384
+    g = torch.Generator(device=dev).manual_seed(3)
+    grad = torch.randn(n, num_cells, c, generator=g, device=dev)
+    ctx = torch.randn(n, hw, c, generator=g, device=dev)
+    height = torch.rand(n, d, hw, generator=g, device=dev)
+    vals, picked, _ = topk_with_cells(torch.rand(n, hw, d, generator=g, device=dev),
+                                      cells.transpose(1, 2).contiguous(), K2B_TOP_K,
+                                      return_bins=True)
+    kw = {"feat_w": f_w} if _bwd_takes_feat_w() else {}
+    out = {}
+    for layout, (h, cl) in (("all_bin", (height, cells)), ("top_k", (vals, picked))):
+        whole_f = lift_splat_forward(h, ctx, cl, n, num_cells)
+        whole_b = lift_splat_backward(grad, h, ctx, cl, n, num_cells, **kw)
+        f_bad = b_bad = 0
+        for i in range(n):
+            sl = slice(i, i + 1)
+            alone_f = lift_splat_forward(h[sl], ctx[sl], cl[sl], 1, num_cells)
+            alone_b = lift_splat_backward(grad[sl], h[sl], ctx[sl], cl[sl], 1,
+                                          num_cells, **kw)
+            f_bad += not torch.equal(alone_f[0], whole_f[i])
+            b_bad += not all(torch.equal(a[0], w[i]) for a, w in zip(alone_b, whole_b))
+        out[layout] = {"k2_frames_differ": f_bad, "k2b_frames_differ": b_bad}
+    return out
+
+
+def r101_stage_batch_diff(dev) -> dict:
+    """bevheight_dair_r101_128 (seeded weights, the serving forward: bf16
+    image side, top-16 lift, fp32 head) on four frames as one batch of 4
+    and as two batches of 2: for each stage (ResNet, neck, HeightNet, the
+    lift's BEV map, the head), the largest per-frame difference over its
+    outputs' scale, and the first stage that differs at all."""
+    from sgv3d_tpu_torch.configs import get_exp
+    from sgv3d_tpu_torch.data.synthetic import make_batch
+    from sgv3d_tpu_torch.models.bev_height import BEVHeight
+    from sgv3d_tpu_torch.weights import seeded_state_dict
+
+    cfg = get_exp("bevheight_dair_r101_128")
+    model = BEVHeight(cfg, use_bf16=True).to(dev).eval()
+    model.load_state_dict(seeded_state_dict(cfg, seed=0))
+    _, mats, *_ = make_batch(cfg, batch=4, seed=0, num_objs=1, max_objs=1)
+    imgs = np.random.default_rng(0).integers(
+        0, 256, (4, 1, 1) + cfg.backbone.final_dim + (3,), dtype=np.uint8)
+    # (stage, module, its outputs compared): the backbone's first output is
+    # the lift's BEV map
+    stages = (("resnet", model.backbone.img_backbone, _flat_tensors),
+              ("neck", model.backbone.img_neck, _flat_tensors),
+              ("height_net", model.backbone.height_net, _flat_tensors),
+              ("lift", model.backbone, lambda o: [o[0]]),
+              ("head", model.head, _flat_tensors))
+
+    def run(sl):
+        got, hooks = {}, []
+        for name, mod, pick in stages:
+            hooks.append(mod.register_forward_hook(
+                lambda _m, _i, o, name=name, pick=pick: got.__setitem__(name, [
+                    t.detach().float() for t in pick(o)])))
+        m = {k: torch.from_numpy(np.asarray(v[sl], np.float32)).to(dev)
+             for k, v in mats.items()}
+        with torch.no_grad():
+            model(torch.from_numpy(imgs[sl]).to(dev), m)
+        for hk in hooks:
+            hk.remove()
+        return got
+
+    whole = run(slice(0, 4))
+    halves = [run(slice(0, 2)), run(slice(2, 4))]
+    report, first = {}, None
+    for name, *_ in stages:
+        worst = 0.0
+        for i, ref in enumerate(whole[name]):
+            # BEV maps and head tensors lead with the batch, image-side
+            # tensors with batch x cameras (one camera here)
+            part = torch.cat([h[name][i] for h in halves])
+            diff = float((part - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+            worst = max(worst, diff)
+        report[name] = worst
+        if first is None and worst > 0:
+            first = name
+    return {"rel_diff": report, "first_differing_stage": first}
+
+
+def _flat_tensors(o) -> list:
+    if isinstance(o, torch.Tensor):
+        return [o]
+    if isinstance(o, dict):
+        return [t for k in sorted(o) for t in _flat_tensors(o[k])]
+    if isinstance(o, (list, tuple)):
+        return [t for x in o for t in _flat_tensors(x)]
+    return []
+
+
+def phase_c4(dev, smi) -> dict:
+    """Whether a frame's outputs depend on its batch (ROADMAP C4): the
+    lift's kernels bitwise per frame (`lift_batch_invariance`, a gate), and
+    the first stage of the r101 serving forward that differs between
+    batch 2 and batch 4 (`r101_stage_batch_diff`, a report)."""
+    lift = lift_batch_invariance(dev)
+    print(f"[c4] K2 / K2b on {C4_FRAMES} rig frames in one batch against each "
+          f"frame alone, frames differing in any bit: {lift}")
+    if any(v for layout in lift.values() for v in layout.values()):
+        raise AssertionError(f"C4: the lift's kernels depend on the batch: {lift}")
+    stages = r101_stage_batch_diff(dev)
+    print(f"[c4] bevheight_dair_r101_128 forward, 4 frames as a batch of 4 "
+          f"against two batches of 2: largest per-frame difference over scale "
+          f"by stage {stages['rel_diff']}; first stage that differs: "
+          f"{stages['first_differing_stage']} ({smi})")
+    return {"lift": lift, **stages}
 
 
 def _train_batch(cfg, batch: int, seed: int):
@@ -1988,9 +2399,16 @@ def profile_train_step(state, batch, steps: int = 3) -> dict:
             ops[evt.key] = ops.get(evt.key, 0.0) + ms
     busy = sum(kernels.values())
     top = sorted(ops.items(), key=lambda kv: -kv[1])[:12]
+    # the lift's own kernels: K2b's one, and K2's prep and pool
+    k2 = ("tile_hist_kernel", "scan_kernel", "place_kernel", "pool_kernel",
+          "finish_kernel")
+    lift = {"lift_splat_bwd": sum(ms for k, ms in kernels.items()
+                                  if "lift_splat_bwd_kernel" in k),
+            "lift_splat": sum(ms for k, ms in kernels.items()
+                              if any(name in k for name in k2))}
     return {"step_ms": step_ms, "kernel_ms_per_step": busy,
             "busy_share": busy / step_ms, "kernels": len(kernels),
-            "top_ops": [[name[:60], ms] for name, ms in top]}
+            "top_ops": [[name[:60], ms] for name, ms in top], "lift_ms": lift}
 
 
 def profile_batchnorm(state, batch) -> dict:
@@ -2148,6 +2566,8 @@ def phase_train_full(dev, smi) -> dict:
           f"{alone['busy_share']:.3f} ({smi})")
     for name, ms in alone["top_ops"]:
         print(f"[train]   {ms:8.3f} ms a step in the kernels of {name}")
+    print(f"[train]   the lift's kernels: K2 {alone['lift_ms']['lift_splat']:.4f} "
+          f"ms, K2b {alone['lift_ms']['lift_splat_bwd']:.4f} ms a step")
     bn = profile_batchnorm(fresh, batch)
     alone["batchnorm"] = bn
     print(f"[train] BatchNorm: {bn['calls']} train-mode calls a step, forward + "
@@ -3057,6 +3477,25 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     smi = _nvidia_smi()
+    if sys.argv[1:] == ["--time-k2b"]:
+        import sgv3d_tpu_torch
+        rounds = [time_k2b() for _ in range(5)]
+        print(json.dumps({"k2b_ms": {k: [r[k]["ms"] for r in rounds] for k in rounds[0]},
+                          "digest": {k: v["digest"] for k, v in rounds[0].items()},
+                          "tree": str(Path(sgv3d_tpu_torch.__file__).resolve().parent.parent),
+                          "device": smi}))
+        return 0
+    if sys.argv[1:] == ["--time-k2"]:
+        import sgv3d_tpu_torch
+        rounds = [time_k2() for _ in range(5)]
+        print(json.dumps({"k2_ms": {k: [r[k]["ms"] for r in rounds] for k in rounds[0]},
+                          "digest": {k: v["digest"] for k, v in rounds[0].items()},
+                          "tree": str(Path(sgv3d_tpu_torch.__file__).resolve().parent.parent),
+                          "device": smi}))
+        return 0
+    if sys.argv[1:] == ["--sweep-k2b"]:
+        print(json.dumps({"k2b_variants": sweep_k2b(), "device": smi}))
+        return 0
     if sys.argv[1:] == ["--time-k1"]:
         import sgv3d_tpu_torch
         times = [time_k1() for _ in range(5)]
@@ -3076,6 +3515,7 @@ def main() -> int:
     phase_eval_tiny(dev)
     evaluation = phase_eval_full(dev, smi)
     k2b = phase_k2b(dev, smi)
+    c4 = phase_c4(dev, smi)
     phase_train_tiny(dev)
     training = phase_train_full(dev, smi)
     sam = phase_sam(dev, smi)
@@ -3116,7 +3556,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels + k4, "sgv3d_full_width": sgv3d,
                       "r101_full_width": full, "r101_eval": evaluation,
                       "sgv3d_train": training, "sam_vit_b": sam,
-                      "dist": distributed}, default=str))
+                      "dist": distributed, "c4": c4}, default=str))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -37,8 +37,11 @@
 // `tile_hist_kernel<false>` counting) reads what the last one wrote; each
 // point's height rides along from pass 0's coalesced read. The last pass
 // writes each point's (context row, weight) pair and its key into its slot.
-// The pool gives each warp kChunk consecutive slots, whatever the segments
-// (near cells of a real rig hold hundreds of points, far ones none): one
+// The pool gives each warp kChunk consecutive slots of one batch element,
+// whatever the segments (near cells of a real rig hold hundreds of points,
+// far ones none); the chunks start afresh at each element's first slot, so
+// a frame's sums are the same bits whatever frames precede it in the
+// batch: one
 // coalesced load of 32 (row, weight) pairs and keys, then kUnroll context
 // rows in flight at a time before they are summed in slot order, lanes
 // owning channels, in fp32 registers. A segment inside one chunk is summed
@@ -342,8 +345,57 @@ place_kernel(const int* __restrict__ cells, const int2* __restrict__ items,
   }
 }
 
-// The pool. Warp w sums the points of slots [w * kChunk, (w + 1) * kChunk)
-// (of the live ones) in slot order, flushing at every change of key: a
+// The chunks of batch element b start at its first slot. Called by a whole
+// warp: the pool's chunk `chunk` is chunk (chunk - *base) of the element
+// returned (-1 past the last), whose slots start at *start. Lanes read 32
+// elements' offsets at a time and scan their chunk counts.
+__device__ int chunk_owner(const int* offsets, int num_cells, int batch,
+                           int chunk, int* base, int* start) {
+  const int lane = threadIdx.x & 31;
+  int first = 0;
+  for (int b0 = 0; b0 < batch; b0 += 32) {
+    const int b = b0 + lane;
+    int lo = 0, k = 0;
+    if (b < batch) {
+      lo = offsets[b * num_cells];
+      k = (offsets[(b + 1) * num_cells] - lo + kChunk - 1) / kChunk;
+    }
+    int incl = k;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += t;
+    }
+    const unsigned hit = __ballot_sync(0xffffffffu, b < batch && chunk < first + incl);
+    if (hit) {
+      const int owner = __ffs(hit) - 1;
+      *base = first + __shfl_sync(0xffffffffu, incl - k, owner);
+      *start = __shfl_sync(0xffffffffu, lo, owner);
+      return b0 + owner;
+    }
+    first += __shfl_sync(0xffffffffu, incl, 31);
+  }
+  return -1;
+}
+
+// The pool chunks of the batch elements before b, by a whole warp.
+__device__ int chunks_before(const int* offsets, int num_cells, int b) {
+  const int lane = threadIdx.x & 31;
+  int sum = 0;
+  for (int e0 = 0; e0 < b; e0 += 32) {
+    const int e = e0 + lane;
+    int k = e < b ? (offsets[(e + 1) * num_cells] - offsets[e * num_cells] +
+                     kChunk - 1) / kChunk
+                  : 0;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) k += __shfl_xor_sync(0xffffffffu, k, o);
+    sum += k;
+  }
+  return sum;
+}
+
+// The pool. Warp w sums the points of its chunk, kChunk slots of one batch
+// element (of the live ones), in slot order, flushing at every change of key: a
 // segment wholly inside the chunk goes to out[key]; the chunk's first and
 // last segments, when they reach past it, go to the chunk's two partial
 // rows, which `finish_kernel` sums in chunk order. The work is the same
@@ -353,13 +405,14 @@ __global__ void __launch_bounds__(kPoolWarps * 32)
 pool_kernel(const float* __restrict__ context, const int2* __restrict__ pairs,
             const int* __restrict__ keys, const int* __restrict__ offsets,
             float* __restrict__ out, float* __restrict__ partials,
-            int num_keys, int c) {
+            int num_cells, int batch, int c) {
   const int lane = threadIdx.x & 31;
   const int chunk = blockIdx.x * kPoolWarps + (threadIdx.x >> 5);
-  const int m = offsets[num_keys];
-  const int lo = chunk * kChunk;
-  if (lo >= m) return;  // whole warp leaves together
-  const int hi = min(lo + kChunk, m);
+  int base, start;
+  const int b = chunk_owner(offsets, num_cells, batch, chunk, &base, &start);
+  if (b < 0) return;  // whole warp leaves together
+  const int lo = start + (chunk - base) * kChunk;
+  const int hi = min(lo + kChunk, offsets[(b + 1) * num_cells]);
   const int first = keys[lo];
   const int last = keys[hi - 1];
   const bool first_out = offsets[first] < lo || offsets[first + 1] > hi;
@@ -429,20 +482,26 @@ template <int CS>
 __global__ void __launch_bounds__(kPoolWarps * 32)
 finish_kernel(const int* __restrict__ offsets,
               const float* __restrict__ partials, float* __restrict__ out,
-              int num_keys, int c) {
+              int num_cells, int batch, int c) {
   const int lane = threadIdx.x & 31;
   const int g = blockIdx.x * kPoolWarps + (threadIdx.x >> 5);
-  if (g >= num_keys) return;
+  if (g >= num_cells * batch) return;
+  const int b = g / num_cells;
+  const int start = offsets[b * num_cells];
   const int lo = offsets[g];
   const int hi = offsets[g + 1];
-  const int c0 = lo / kChunk;
-  const int c1 = hi > lo ? (hi - 1) / kChunk : c0 - 1;
-  if (hi > lo && c0 == c1) return;
+  // chunk indices within element b first: a segment inside one chunk
+  // leaves before the element's chunk base is needed
+  if (hi > lo && (lo - start) / kChunk == (hi - 1 - start) / kChunk) return;
+  const int base = chunks_before(offsets, num_cells, b);
+  const int c0 = base + (lo - start) / kChunk;
+  const int c1 = hi > lo ? base + (hi - 1 - start) / kChunk : c0 - 1;
   float acc[CS];
 #pragma unroll
   for (int s = 0; s < CS; ++s) acc[s] = 0.f;
   for (int k = c0; k <= c1; ++k) {
-    const float* p = partials + static_cast<int64_t>(2 * k + (lo <= k * kChunk ? 0 : 1)) * c;
+    const int k_start = start + (k - base) * kChunk;
+    const float* p = partials + static_cast<int64_t>(2 * k + (lo <= k_start ? 0 : 1)) * c;
 #pragma unroll
     for (int s = 0; s < CS; ++s) {
       const int ch = s * 32 + lane;
@@ -481,7 +540,7 @@ struct Workspace {
 // Lays the workspace out in `w`, when `ws` is not null, and returns its
 // size in ints.
 int64_t carve(int* ws, int64_t num_keys, int64_t p, int tiles, int c,
-              Workspace* w) {
+              int batch, Workspace* w) {
   const int64_t a_pairs = align4(num_keys + 1 + kMaxChunks);
   const int64_t a_keys = a_pairs + 2 * p;
   const int64_t a_totals = a_keys + p;
@@ -501,7 +560,7 @@ int64_t carve(int* ws, int64_t num_keys, int64_t p, int tiles, int c,
     w->wbuf[1] = reinterpret_cast<float*>(ws + a_buf + 5 * p);
     w->partials = reinterpret_cast<float*>(ws + a_part);
   }
-  return a_part + 2 * pool_chunks(p) * c;
+  return a_part + 2 * (pool_chunks(p) + batch) * c;
 }
 
 template <bool kPoints, bool kLast>
@@ -548,7 +607,7 @@ bool setup(int* ws, int64_t ws_ints, int batch, int num_cells, int n, int j,
   while ((int64_t{1} << bits) < keys64) ++bits;
   const int chunk_bits = bits > 22 ? bits - 10 : 12;  // <= kMaxChunks chunks
   *g = Geo{p, j * hw, static_cast<int>(p64 / batch), hw, num_cells, chunk_bits};
-  return carve(ws, *num_keys, p, *tiles, c, w) <= ws_ints;
+  return carve(ws, *num_keys, p, *tiles, c, batch, w) <= ws_ints;
 }
 
 // Radix passes of kRadixBits over the bits of the largest key.
@@ -611,16 +670,18 @@ int prep(const float* height, const int* cells, int* ws, int64_t ws_ints,
 
 template <int CS>
 void launch_pool(const float* context, const Workspace& w, float* out, int p,
-                 int num_keys, int c, int* launched, cudaStream_t stream) {
-  const int64_t warps = pool_chunks(p);
-  if (warps > 0) {
+                 int num_cells, int batch, int c, int* launched,
+                 cudaStream_t stream) {
+  const int64_t warps = pool_chunks(p) + batch;  // each element's last chunk may be short
+  const int num_keys = num_cells * batch;
+  if (p > 0) {
     pool_kernel<CS><<<(warps + kPoolWarps - 1) / kPoolWarps, kPoolWarps * 32, 0,
                       stream>>>(context, w.pairs, w.keys, w.offsets, out,
-                                w.partials, num_keys, c);
+                                w.partials, num_cells, batch, c);
     ++*launched;
   }
   finish_kernel<CS><<<(num_keys + kPoolWarps - 1) / kPoolWarps, kPoolWarps * 32,
-                      0, stream>>>(w.offsets, w.partials, out, num_keys, c);
+                      0, stream>>>(w.offsets, w.partials, out, num_cells, batch, c);
   ++*launched;
 }
 
@@ -637,13 +698,13 @@ int pool(const float* context, int* ws, int64_t ws_ints, float* out, int batch,
              &w))
     return -1;
   if (c <= 32) {
-    launch_pool<1>(context, w, out, g.p, num_keys, c, launched, stream);
+    launch_pool<1>(context, w, out, g.p, num_cells, batch, c, launched, stream);
   } else if (c <= 64) {
-    launch_pool<2>(context, w, out, g.p, num_keys, c, launched, stream);
+    launch_pool<2>(context, w, out, g.p, num_cells, batch, c, launched, stream);
   } else if (c <= 96) {
-    launch_pool<3>(context, w, out, g.p, num_keys, c, launched, stream);
+    launch_pool<3>(context, w, out, g.p, num_cells, batch, c, launched, stream);
   } else {
-    launch_pool<kMaxChannelSlots>(context, w, out, g.p, num_keys, c, launched,
+    launch_pool<kMaxChannelSlots>(context, w, out, g.p, num_cells, batch, c, launched,
                                   stream);
   }
   return static_cast<int>(cudaGetLastError());
@@ -668,7 +729,7 @@ extern "C" int lift_splat_layout(int batch, int num_cells, int n, int j,
   if (c < 0 || !setup(nullptr, INT64_MAX, batch, num_cells, n, j, hw, c, &g,
                       &num_keys, &tiles, &w))
     return -1;
-  out[0] = carve(nullptr, num_keys, g.p, tiles, c, nullptr);
+  out[0] = carve(nullptr, num_keys, g.p, tiles, c, batch, nullptr);
   out[1] = align4(int64_t{num_keys} + 1 + kMaxChunks);
   return 0;
 }

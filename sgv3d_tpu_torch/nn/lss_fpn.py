@@ -125,9 +125,13 @@ def _lift_and_splat(cfg: BackboneConfig, height_prob, tran_feat, mats, sweep,
     else:
         hp = height_prob.float().permute(0, 3, 1, 2).reshape(b * n, d, f_h * f_w)
         cell = cell.reshape(b * n, d, f_h * f_w)
-    pool = LiftSplat.apply if train else lift_splat_forward
-    bev = pool(hp.contiguous(), ctx.contiguous(), cell.contiguous(), b,
-               num_y * num_x)
+    args = (hp.contiguous(), ctx.contiguous(), cell.contiguous(), b,
+            num_y * num_x)
+    if train:
+        # the backward tiles the uncut fH x fW map in 2-D patches
+        bev = LiftSplat.apply(*args, f_w if pix_keep is None else None)
+    else:
+        bev = lift_splat_forward(*args)
     return bev.reshape(b, num_y, num_x, -1)
 
 

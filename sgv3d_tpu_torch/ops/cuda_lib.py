@@ -46,9 +46,11 @@ SIGNATURES = {
     # (height, context, cells, ws, ws_ints, out, batch, num_cells, n, j, hw,
     #  c, launched, stream)
     "lift_splat_launch": [_P, _P, _P, _P, _L, _P] + [_I] * 6 + [_IP, _P],
-    # (grad, height, context, cells, d_height, d_ctx, batch, num_cells, n, j,
-    #  hw, c, launched, stream)
-    "lift_splat_bwd_launch": [_P] * 6 + [_I] * 6 + [_IP, _P],
+    # (j, c, out[5])
+    "lift_splat_bwd_plan": [_I, _I, _P],
+    # (grad, height, context, cells, d_height, d_ctx, served or None, batch,
+    #  num_cells, n, j, hw, feat_w or 0, c, launched, stream)
+    "lift_splat_bwd_launch": [_P] * 7 + [_I] * 7 + [_IP, _P],
     # (x, w1, b1, w2, b2, w3, b3, out, batch, h, w, p, th, tw, smem, stream)
     "fused_bottleneck_launch": [_P] * 8 + [_I] * 7 + [_P],
     # (ctx, idx, out, m, hw, c, stream)

@@ -17,7 +17,9 @@ one to the other.
 
 The backward (kernel K2b, `csrc/lift_splat_bwd.cu`; on the TPU it was XLA
 gathers in the custom VJP `_lift_splat_bwd`, not Pallas) is
-`lift_splat_backward`, with `lift_splat_backward_plain` beside it; the
+`lift_splat_backward`, with `lift_splat_backward_plain` beside it. Given
+the feature map's width it tiles the map in 2-D patches, whose points share
+BEV cells, and reads each patch's rows of g once (`backward_plan`); the
 autograd function `LiftSplat` pairs the two directions, on the card K2 and
 K2b, on the CPU the plain versions. `TopkCells`, the autograd function of
 the top-k training lift's pick (K1 with its bins on the card), feeds it
@@ -177,13 +179,15 @@ def lift_splat_forward(height: torch.Tensor, context: torch.Tensor,
 
 def lift_splat_backward_plain(grad: torch.Tensor, height: torch.Tensor,
                               context: torch.Tensor, cells: torch.Tensor,
-                              batch: int, num_cells: int) -> tuple[torch.Tensor, torch.Tensor]:
+                              batch: int, num_cells: int,
+                              feat_w: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """The JAX custom VJP's backward (`_lift_splat_bwd`) in plain torch:
     gather each point's row of `grad` (B, num_cells, C) at its cell, a zero
     row for the trash (any cell outside [0, num_cells)), then
     d_height = <g_row, ctx_row> and d_ctx = sum over j of height * g_row,
     D_CHUNK bins at a time. Returns (d_height (N, J, HW), d_ctx
-    (N, HW, C)) float32; cells get no gradient."""
+    (N, HW, C)) float32; cells get no gradient. `feat_w` (the kernel's
+    tiling) is ignored."""
     n, j, hw = height.shape
     c = context.shape[-1]
     g_pad = torch.cat([grad.float(), grad.new_zeros(batch, 1, c, dtype=torch.float32)],
@@ -204,12 +208,25 @@ def lift_splat_backward_plain(grad: torch.Tensor, height: torch.Tensor,
 
 def lift_splat_backward(grad: torch.Tensor, height: torch.Tensor,
                         context: torch.Tensor, cells: torch.Tensor, batch: int,
-                        num_cells: int) -> tuple[torch.Tensor, torch.Tensor]:
+                        num_cells: int, feat_w: int | None = None,
+                        served: torch.Tensor | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """grad (B, num_cells, C) float32 and the forward's height, context and
-    cells -> (d_height (N, J, HW), d_ctx (N, HW, C)) float32. On a CUDA
-    tensor one launch of K2b, counted in `launches`; on the CPU
+    cells -> (d_height (N, J, HW), d_ctx (N, HW, C)) float32. `feat_w`: the
+    feature map's width when HW is a whole fH x fW map (the kernel then
+    tiles it in 2-D patches, whose points share cells); None takes HW as
+    one row. On a CUDA tensor one launch of K2b, counted in `launches`;
+    `served`, an int32 CUDA tensor of one element, gets the count of live
+    points the kernel read from its staged rows added. On the CPU
     `lift_splat_backward_plain`."""
+    hw = height.shape[-1]
+    if feat_w is not None and (feat_w <= 0 or hw % feat_w):
+        raise ValueError(f"lift_splat_backward: HW {hw} is not a whole number "
+                         f"of rows of width {feat_w}")
     if height.device.type == "cpu":
+        if served is not None:
+            raise ValueError("lift_splat_backward: `served` counts the card "
+                             "kernel's staged reads; the CPU has none")
         return lift_splat_backward_plain(grad, height, context, cells, batch,
                                          num_cells)
     _check("lift_splat_backward", height, cells, batch, context)
@@ -220,6 +237,10 @@ def lift_splat_backward(grad: torch.Tensor, height: torch.Tensor,
         raise ValueError(f"lift_splat_backward: grad {tuple(grad.shape)} "
                          f"{grad.dtype} on {grad.device}; need float32 "
                          f"({batch}, {num_cells}, {c}) on {height.device}")
+    if served is not None and (served.device != height.device
+                               or served.dtype != torch.int32 or served.numel() != 1):
+        raise ValueError("lift_splat_backward: `served` must be one int32 on "
+                         f"{height.device}")
     g, h = grad.contiguous(), height.contiguous()
     ctx, cl = context.contiguous(), cells.contiguous()
     d_height = torch.empty_like(h)
@@ -228,31 +249,46 @@ def lift_splat_backward(grad: torch.Tensor, height: torch.Tensor,
     with torch.cuda.device(h.device):
         cuda_lib.check(cuda_lib.library().lift_splat_bwd_launch(
             g.data_ptr(), h.data_ptr(), ctx.data_ptr(), cl.data_ptr(),
-            d_height.data_ptr(), d_ctx.data_ptr(), batch, num_cells, n, j, hw, c,
-            ctypes.byref(launched),
+            d_height.data_ptr(), d_ctx.data_ptr(),
+            None if served is None else served.data_ptr(), batch, num_cells,
+            n, j, hw, feat_w or 0, c, ctypes.byref(launched),
             torch.cuda.current_stream(h.device).cuda_stream), "lift_splat_bwd_launch")
     lift_splat_backward.launches += launched.value
     return d_height, d_ctx
 
 
+def backward_plan(j: int, c: int) -> dict:
+    """K2b's tile for J bins and C channels, from the kernel: 'tile' (TH,
+    TW) pixels a block, 'rows' of g it can stage, 'smem' bytes a block,
+    'blocks_per_sm'."""
+    out = (ctypes.c_int * 5)()
+    cuda_lib.check(cuda_lib.library().lift_splat_bwd_plan(j, c, out),
+                   "lift_splat_bwd_plan")
+    return {"tile": (out[0], out[1]), "rows": out[2], "smem": out[3],
+            "blocks_per_sm": out[4]}
+
+
 class LiftSplat(torch.autograd.Function):
     """`lift_splat_forward` with `lift_splat_backward` as its gradient:
-    (height (N, J, HW), context (N, HW, C), cells, batch, num_cells) ->
-    (B, num_cells, C). Gradients reach height and context; cells, batch and
-    num_cells get none."""
+    (height (N, J, HW), context (N, HW, C), cells, batch, num_cells,
+    feat_w=None) -> (B, num_cells, C); `feat_w` (the feature map's width,
+    or None) goes to the backward's tiling. Gradients reach height and
+    context; the other arguments get none."""
 
     @staticmethod
-    def forward(ctx, height, context, cells, batch: int, num_cells: int):
+    def forward(ctx, height, context, cells, batch: int, num_cells: int,
+                feat_w: int | None = None):
         ctx.save_for_backward(height, context, cells)
-        ctx.batch, ctx.num_cells = batch, num_cells
+        ctx.batch, ctx.num_cells, ctx.feat_w = batch, num_cells, feat_w
         return lift_splat_forward(height, context, cells, batch, num_cells)
 
     @staticmethod
     def backward(ctx, grad):
         height, context, cells = ctx.saved_tensors
         d_height, d_ctx = lift_splat_backward(grad.contiguous(), height, context,
-                                              cells, ctx.batch, ctx.num_cells)
-        return d_height, d_ctx, None, None, None
+                                              cells, ctx.batch, ctx.num_cells,
+                                              ctx.feat_w)
+        return d_height, d_ctx, None, None, None, None
 
 
 class TopkCells(torch.autograd.Function):

@@ -314,6 +314,11 @@ def _evaluate_state(cfg: ExpConfig, predictor: BEVHeightPredictor, loader,
     else:
         results = results[:len(dataset)]
         img_metas = img_metas[:len(dataset)]
+    # every frame exactly once: nothing evaluates a prefix of the val set,
+    # so a short gather is a lost batch, not a shorter evaluation
+    if len(results) != len(dataset) or len(img_metas) != len(dataset):
+        raise ValueError(f"evaluation gathered {len(results)} results and "
+                         f"{len(img_metas)} metas for {len(dataset)} frames")
     if dist.get_rank() != 0:
         return None
     evaluator = RoadSideEvaluator(

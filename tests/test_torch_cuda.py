@@ -12,7 +12,9 @@ order) and bitwise equal across runs, its padding exact; K4 bitwise equal
 to its plain version (zero rows for indices outside [0, HW); the one-hot's
 -0.0 as +0.0 and NaN from 0 x inf) and across runs; K2b (the lift's
 backward) within 1e-5 * max|ref| + 1e-6 of `lift_splat_backward_plain` and
-bitwise equal across runs, one launch a call. K1's bins (the top-k
+bitwise equal across runs, one launch a call, on uniform, one-cell, rig and
+ragged cells; K2 and K2b bitwise the same for a frame alone and inside a
+batch. K1's bins (the top-k
 training lift) exact, ties to the lowest bin; the top-k training lift's
 gradients (K1 with bins, K2, K2b) card vs CPU within 1e-5 of scale, the
 same bins picked; the tiny SAM encoder card vs CPU within 1e-4 of scale;
@@ -217,18 +219,52 @@ def test_lift_splat_bitwise_deterministic(cuda_device, batch, num_cells, n, j,
     assert not a[0, :77].any() and not a[0, 78:].any()
 
 
-@pytest.mark.parametrize("batch,n,j,hw,c,num_cells", [
-    (2, 2, 90, 2000, 87, 16384), (3, 6, 13, 1001, 37, 777), (1, 1, 256, 33, 128, 5),
-    (2, 4, 16, 31, 1, 64)])
+def _k2b_cells(kind, g, n, j, hw, num_cells, device):
+    """Cells for K2b's card cases: "uniform" over [-2, num_cells + 3) (the
+    trash both below and past the end; tiles share next to no rows, so the
+    kernel's overflow path runs), "one" (every point in cell 77), "rig"
+    (the all-bin training cells of the tiny config's backbone at a 25 x 41
+    stride-8 map and 90 bins, `rig_backbone`)."""
+    if kind == "one":
+        return torch.full((n, j, hw), 77, dtype=torch.int32, device=device)
+    if kind == "rig":
+        import dataclasses
+        from sgv3d_tpu_torch.data.synthetic import make_batch
+        from sgv3d_tpu_torch.nn.lss_fpn import compute_lift_cells
+
+        cfg = chip_smoke.tiny_exp()
+        bb = dataclasses.replace(cfg.backbone, final_dim=(200, 328),
+                                 downsample_factor=8, d_bound=(-2.0, 3.5, 90))
+        _, mats, *_ = make_batch(dataclasses.replace(cfg, backbone=bb), n, seed=0)
+        m = {k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in mats.items()}
+        return compute_lift_cells(bb, m, train=True).reshape(n, j, hw).to(device)
+    return torch.randint(-2, num_cells + 3, (n, j, hw), generator=g, device=device,
+                         dtype=torch.int32)
+
+
+@pytest.mark.parametrize("batch,n,j,hw,c,num_cells,feat_w,kind", [
+    (2, 2, 90, 2000, 87, 16384, None, "uniform"),
+    (3, 6, 13, 1001, 37, 777, None, "uniform"),
+    (1, 1, 256, 33, 128, 5, None, "uniform"),
+    (2, 4, 16, 31, 1, 64, None, "uniform"),
+    (2, 2, 90, 2000, 87, 16384, 50, "uniform"),     # 40 x 50 pixels
+    (3, 6, 13, 1001, 37, 777, 77, "uniform"),       # 13 x 77: ragged both ways
+    (1, 2, 256, 600, 1, 300, 30, "uniform"),        # J = 256, C = 1
+    (2, 2, 256, 221, 128, 4000, 17, "uniform"),     # J = 256, C = 128, 13 x 17
+    (2, 2, 90, 2000, 87, 16384, 50, "one"),
+    (2, 2, 90, 1025, 16, 256, 41, "rig"),           # 25 x 41
+])
 def test_lift_splat_backward_kernel_matches_plain(cuda_device, batch, n, j, hw,
-                                                  c, num_cells):
+                                                  c, num_cells, feat_w, kind):
+    """K2b within 1e-5 * max|ref| + 1e-6 of its plain version, bitwise the
+    same across two runs, one launch a call, trash points' d_height exactly
+    0, with the feature map's width (2-D tiles) and without (one row)."""
     g = torch.Generator(device=cuda_device).manual_seed(j)
     height = torch.rand(n, j, hw, generator=g, device=cuda_device)
     ctx = torch.randn(n, hw, c, generator=g, device=cuda_device)
-    cells = torch.randint(-2, num_cells + 3, (n, j, hw), generator=g,
-                          device=cuda_device, dtype=torch.int32)
+    cells = _k2b_cells(kind, g, n, j, hw, num_cells, cuda_device)
     grad = torch.randn(batch, num_cells, c, generator=g, device=cuda_device)
-    args = (grad, height, ctx, cells, batch, num_cells)
+    args = (grad, height, ctx, cells, batch, num_cells, feat_w)
     before = lift_splat_backward.launches
     got, again = lift_splat_backward(*args), lift_splat_backward(*args)
     ref = lift_splat_backward_plain(*args)
@@ -240,6 +276,13 @@ def test_lift_splat_backward_kernel_matches_plain(cuda_device, batch, n, j, hw,
         assert err <= 1e-5 * float(r.abs().max()) + 1e-6
     outside = (cells < 0) | (cells >= num_cells)
     assert torch.all(got[0][outside] == 0)
+
+
+def test_lift_kernels_are_batch_invariant(cuda_device):
+    """K2 and K2b on four frames of the r50 rig in one batch give each
+    frame's outputs bitwise as the frame alone does (ROADMAP C4)."""
+    out = chip_smoke.lift_batch_invariance(cuda_device)
+    assert all(v == 0 for layout in out.values() for v in layout.values()), out
 
 
 def test_tiny_train_step_card_matches_cpu(cuda_device):

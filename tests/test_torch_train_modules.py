@@ -67,11 +67,15 @@ def _n(t):
 # ---------------------------------------------------------------- K2b
 
 
-@pytest.mark.parametrize("layout,j", [("top-k", 4), ("all-bin", 13)])
-def test_backward_plain_matches_jax_vjp(rng, layout, j):
+@pytest.mark.parametrize("layout,j,feat_w", [("top-k", 4, None), ("all-bin", 13, None),
+                                             ("all-bin", 13, 7)],
+                         ids=["top-k-4", "all-bin-13", "all-bin-13-feat_w-7"])
+def test_backward_plain_matches_jax_vjp(rng, layout, j, feat_w):
     """Two batch elements of two cameras each, a third of the points in the
-    trash cell, D = 13 not a multiple of the JAX scan's d_chunk of 10."""
-    batch, n, hw, c, cells = 2, 4, 37, 9, 50
+    trash cell, D = 13 not a multiple of the JAX scan's d_chunk of 10; with
+    `feat_w`, the pixels a 5 x 7 map whose width `LiftSplat` carries to the
+    backward (the gradients do not change with it)."""
+    batch, n, hw, c, cells = 2, 4, 37 if feat_w is None else 35, 9, 50
     height = rng.random((n, j, hw)).astype(np.float32)
     ctx = rng.normal(size=(n, hw, c)).astype(np.float32)
     cell = rng.integers(0, cells, size=(n, j, hw)).astype(np.int32)
@@ -89,7 +93,7 @@ def test_backward_plain_matches_jax_vjp(rng, layout, j):
     assert np.all(_n(d_h)[cell == cells] == 0)
     # the autograd function routes the same gradients
     h, x = _t(height).requires_grad_(), _t(ctx).requires_grad_()
-    LiftSplat.apply(h, x, _t(cell), batch, cells).backward(_t(grad))
+    LiftSplat.apply(h, x, _t(cell), batch, cells, feat_w).backward(_t(grad))
     np.testing.assert_array_equal(_n(h.grad), _n(d_h))
     np.testing.assert_array_equal(_n(x.grad), _n(d_c))
 
