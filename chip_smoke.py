@@ -15,6 +15,7 @@
     python3 chip_smoke.py --serving    # the build and `phase_serving` alone
     python3 chip_smoke.py --latency    # the build and `phase_latency` (only here)
     python3 chip_smoke.py --profile    # the build and every measuring tool (only here)
+    python3 chip_smoke.py --train-all  # the build and `phase_train_all` (only here)
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
   1. build the CUDA kernels from `sgv3d_tpu_torch/csrc` (one nvcc a source,
@@ -99,6 +100,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      (TH, TW, staged rows) and the share of live points it served from
      staged rows (at least that of the tiles whose distinct cells fit,
      `tile_distinct_cells`); K2's forward timed at the training shape too;
+     the same for the training lifts of K2B_WIDE (`k2b_wide_cases`:
+     (8, 180, 5184) x 80 and (2, 180, 20736) x 87 into 65,536 cells,
+     (8, 90, 5184) x 80 into 123,904), each on its rig's cells, on its
+     first training batch's cells on a fake root of its layout and on
+     uniform cells, K2's
+     forward held and timed beside K2b's, its prep's order exact;
      then C4 (`phase_c4`): K2 and K2b on four rig frames in one batch
      bitwise each frame alone, both layouts, and the first stage of the
      r101 serving forward (ResNet, neck, HeightNet, the lift, the head)
@@ -128,7 +135,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      backward a step timed alone beside cuDNN's fused batch norm; then
      `train_lift_top_k=16` for 4 steps (K1, K2 and K2b launches a step,
      finite losses, peak memory, the card's step alone beside the all-bin
-     one's);
+     one's); then `phase_train_wide`: `bevheight_rope3d_r101_256` at its
+     own batch of 8 (r101 rematerialised, 180 bins, 65,536 cells) through
+     `runner.train` for 3 steps on a fake Rope3D root (finite losses, K2
+     and K2b launched alike every step, the checkpoint restored bitwise,
+     their first training calls held to the plain versions, K2's prep
+     order exact; ms a step, loader wait, peak memory, the served share),
+     the step-3 checkpoint evaluated at full width (a KITTI file a frame,
+     every kept box through the KITTI writer with no threshold: a line
+     each, finite, the camera round trip; K2's first call held), and one
+     float32 step at batch 2, deterministic algorithms on, with the
+     kernels held by `check_loss_and_metrics` and `check_grads` to the
+     step whose backward is K2b's plain version (same forward bits), by
+     `check_loss_and_metrics` to the step with both plain versions, the
+     same gates required to fail a backward with d_height 2% off;
   8. the SAM ViT-B image encoder: a tiny one card vs CPU within 1e-4, then
      `build_sam_vit_b()` at 1024x1024, batch 1, float32 (TF32 off), seeded:
      output (1, 64, 64, 256) finite, median of 10 calls, peak memory;
@@ -248,7 +268,9 @@ The line before the last is the card's name and power limit from
 nvidia-smi; the last line is {"ok": true, "device": {...}}. The kernels
 line carries K1-K4 and K2b, and K2 and K2b at J = 1 as `voxel_pooling`
 (their launches those of its main path); K2's and K2b's launches of the all-bin
-training run are `launches_train` and `launches`, K1's, K2's and K2b's of
+training run are `launches_train` and `launches`, of `phase_train_wide`'s
+`launches_train_wide` (with `_per_step`), K2's at K2B_WIDE's shapes
+`<key>_<exp>_rig` / `_train` / `_uniform` beside K2b's, K1's, K2's and K2b's of
 the top-k training run `launches_train_topk`, K2's and K2b's of the
 distributed run, a list by rank, `launches_dist_train` and
 `launches_dist_eval`, K1's and K2's a forward by data row of each mesh
@@ -276,6 +298,15 @@ print the same digests); `--time-k2` times K2's forward on those inputs.
 shape, staging rows, block shape, rows in flight) from its own source,
 holds each variant's outputs bitwise to the package kernel's and prints
 their graph-timed means on the same four cases.
+
+`--train-all` (`phase_train_all`) trains each of TRAIN_ALL_EXPS, the
+exps the default run does not train, at its own batch for 3 steps through
+`tools.train` on a fake root of its dataset's own layout, evaluates the
+step-3 checkpoint at full width through `tools.train -e`, all in one
+process without jax, each run's first kernel calls held to their plain
+versions, the evaluation's kept boxes through the KITTI writer as in
+`phase_train_wide`, and prints a line an exp: ms a step, loader wait
+share, peak memory, K2 / K2b launches a step, evaluation seconds a batch.
 """
 from __future__ import annotations
 
@@ -285,6 +316,7 @@ import hashlib
 import inspect
 import io
 import json
+import math
 import multiprocessing
 import multiprocessing.connection
 import os
@@ -1647,28 +1679,146 @@ def check_captured(inputs: dict, path: str) -> dict:
     return checked
 
 
+RUN_KERNELS = (("sgv3d_tpu_torch.ops.topk_cells", "topk_with_cells", "topk_cells"),
+               ("sgv3d_tpu_torch.ops.lift_splat", "lift_splat_forward", "lift_splat"),
+               ("sgv3d_tpu_torch.ops.lift_splat", "lift_splat_backward", "lift_splat_bwd"),
+               ("sgv3d_tpu_torch.ops.fused_bottleneck", "fused_bottleneck",
+                "fused_bottleneck"))
+
+
+def kitti_probe(evaluator, results, img_metas) -> dict:
+    """Every box an evaluation kept (`results`, `img_metas` as
+    `RoadSideEvaluator.evaluate` takes them) through the evaluator's KITTI
+    writer with no score threshold and the layout's own calibration reader,
+    into `<output_dir>/kitti_probe`: the boxes, the highest score, the
+    lines expected (one a box of a class the writer maps) and written,
+    whether every field is finite, and the camera round trip, the largest
+    of |velo2cam^-1 (line's camera xyz) - box centre| (m), |(h, l, w) -
+    box size| and |pi/2 - line's yaw - box yaw| over the lines (the writer
+    rounds to 4 decimals)."""
+    from sgv3d_tpu_torch.evalkit.evaluator import format_results
+    from sgv3d_tpu_torch.evalkit.kitti_writer import CATEGORY_MAP, result2kitti
+
+    nusc = format_results(results, img_metas, evaluator.class_names)
+    calib = evaluator._calib_provider()
+    data = result2kitti(nusc, os.path.join(evaluator.output_dir, "kitti_probe"), calib,
+                        score_threshold=-math.inf)
+    boxes = expected = written = 0
+    finite, top, trip = True, -math.inf, 0.0
+    for token, preds in nusc.items():
+        sample_id, velo2cam, _ = calib(token)
+        with open(os.path.join(data, f"{sample_id:06d}.txt")) as f:
+            lines = [ln.split() for ln in f.read().splitlines()]
+        kept = [p for p in preds if p["detection_name"] in CATEGORY_MAP]
+        boxes, expected, written = boxes + len(preds), expected + len(kept), \
+            written + len(lines)
+        top = max([top] + [p["detection_score"] for p in preds])
+        for pred, line in zip(kept, lines):
+            v = np.array(line[1:], float)
+            finite = finite and bool(np.isfinite(v).all())
+            centre = (np.linalg.inv(velo2cam) @ np.append(v[10:13], 1.0))[:3]
+            w, l, h = pred["size"]
+            trip = max(trip, float(np.abs(centre - pred["translation"]).max()),
+                       float(np.abs(v[7:10] - (h, l, w)).max()),
+                       abs(float(np.pi / 2 - v[13] - pred["box_yaw"])))
+    return {"boxes": boxes, "max_score": None if top == -math.inf else top,
+            "expected": expected, "lines": written, "finite": finite,
+            "round_trip": trip}
+
+
+@contextlib.contextmanager
+def runner_stats(record: dict):
+    """Within the block: each kernel's launches counted from 0 (RUN_KERNELS;
+    `record["launches"]`), and the lift's a `runner.train_step`
+    (`record["launches_per_step"]`, K2 and K2b); the loop's host timing of
+    each `runner.train` and `runner.evaluate` call that passes no `stats`
+    of its own (`record["train"]`, `record["evaluate"]`); each evaluation's
+    kept boxes through the KITTI writer with no threshold
+    (`record["kitti_probe"]`, `kitti_probe`'s, the last evaluation's); on
+    the card the peak of `torch.cuda.max_memory_allocated`
+    (`record["peak_mem_gib"]`)."""
+    import importlib
+
+    from sgv3d_tpu_torch import runner
+    from sgv3d_tpu_torch.evalkit.evaluator import RoadSideEvaluator
+
+    fns = {name: getattr(importlib.import_module(mod), fn) for mod, fn, name in RUN_KERNELS}
+    saved = {name: getattr(runner, name) for name in ("train", "evaluate", "train_step")}
+    evaluate = RoadSideEvaluator.evaluate
+    per_step = record.setdefault("launches_per_step", [])
+
+    def timed(name):
+        def call(*args, **kw):
+            if kw.get("stats") is None:
+                kw["stats"] = record.setdefault(name, {})
+            return saved[name](*args, **kw)
+        return call
+
+    def step(*args, **kw):
+        before = [fns[k].launches for k in ("lift_splat", "lift_splat_bwd")]
+        metrics = saved["train_step"](*args, **kw)
+        per_step.append([fns[k].launches - b
+                         for k, b in zip(("lift_splat", "lift_splat_bwd"), before)])
+        return metrics
+
+    def probed(self, results, img_metas):
+        record["kitti_probe"] = kitti_probe(self, results, img_metas)
+        return evaluate(self, results, img_metas)
+
+    for fn in fns.values():
+        fn.launches = 0
+    card = torch.cuda.is_available()
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    runner.train, runner.evaluate, runner.train_step = timed("train"), timed("evaluate"), step
+    RoadSideEvaluator.evaluate = probed
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(runner, name, fn)
+        RoadSideEvaluator.evaluate = evaluate
+        record["launches"] = {name: fn.launches for name, fn in fns.items()}
+        if card:
+            record["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+@contextlib.contextmanager
+def captured_calls(inputs: dict):
+    """Within the block, the first call of each kernel's wrapper on the
+    port's paths (CAPTURED) kept in `inputs` for `check_captured`."""
+    import importlib
+
+    with contextlib.ExitStack() as stack:
+        for mod, name, key in CAPTURED:
+            stack.enter_context(first_call_inputs(importlib.import_module(mod), name,
+                                                  inputs, key))
+        yield
+
+
 def checked_runs(out_path: str, runs: list) -> None:
     """Each (module, argv, env) of `runs` as `python -m module argv` with
     `env` added to os.environ, one after another in this process, with the
     first call of each kernel's wrapper on the port's paths kept
     (CAPTURED) and held against its plain version after the run
-    (`check_captured`); writes [{"module", "stdout", "checked"}, ...] to
-    out_path. The runs' own output is kept apart from this process's. Run
-    through `run_without_jax`, so that jax stays out of it too."""
-    import importlib
-    import io
+    (`check_captured`); a run given as (module, argv, env, True) is also
+    counted by `runner_stats`. Writes [{"module", "stdout", "checked",
+    "seconds", and `runner_stats`' keys where counted}, ...] to out_path.
+    The runs' own output is kept apart from this process's. Run through
+    `run_without_jax`, so that jax stays out of it too."""
     import runpy
 
     results = []
-    for module, argv, env in runs:
-        inputs, printed = {}, io.StringIO()
+    for module, argv, env, *counted in runs:
+        inputs, printed, record = {}, io.StringIO(), {}
         t0 = time.perf_counter()
         before = {key: os.environ.get(key) for key in env}
         os.environ.update(env)
         with contextlib.ExitStack() as stack:
-            for mod, name, key in CAPTURED:
-                stack.enter_context(first_call_inputs(
-                    importlib.import_module(mod), name, inputs, key))
+            stack.enter_context(captured_calls(inputs))
+            if counted and counted[0]:
+                stack.enter_context(runner_stats(record))
             stack.enter_context(contextlib.redirect_stdout(printed))
             sys.argv = [module] + argv
             try:
@@ -1683,7 +1833,8 @@ def checked_runs(out_path: str, runs: list) -> None:
             else:
                 os.environ[key] = value
         results.append({"module": module, "stdout": printed.getvalue(),
-                        "checked": checked, "seconds": time.perf_counter() - t0})
+                        "checked": checked, "seconds": time.perf_counter() - t0,
+                        **record})
         del inputs
         torch.cuda.empty_cache()
     Path(out_path).write_text(json.dumps(results))
@@ -1871,6 +2022,103 @@ def k2b_cases(dev) -> dict:
     return {k: cases[k] for k in ("", "_top_k", "_rig", "_rig_top_k", "_ragged")}
 
 
+TRAIN_ROOTS = Path(__file__).resolve().parent / "build" / "chip_smoke_train_roots"
+TRAIN_ROOT_FRAMES = 24      # three steps at batch 8 (one epoch), three eval batches
+TRAIN_ROOT_HW = (1080, 1920)
+
+
+def exp_layout(cfg) -> str:
+    """The dataset tree `cfg` reads (`write_fake_kitti_root`'s layouts):
+    the last part of its `data_root`."""
+    return os.path.basename(cfg.data_root.rstrip("/"))
+
+
+def train_root(layout: str) -> str:
+    """A fake root of TRAIN_ROOT_FRAMES frames of TRAIN_ROOT_HW in
+    `layout`'s own tree under TRAIN_ROOTS (seed 0), written once and
+    reused."""
+    from sgv3d_tpu_torch.data.synthetic import write_fake_kitti_root
+
+    root = TRAIN_ROOTS / layout / layout
+    if not (root / "written").exists():
+        shutil.rmtree(root.parent, ignore_errors=True)
+        t0 = time.perf_counter()
+        write_fake_kitti_root(root, TRAIN_ROOT_FRAMES, src_hw=TRAIN_ROOT_HW, seed=0,
+                              layout=layout)
+        (root / "written").write_text("")
+        print(f"[train] a fake {layout} root of {TRAIN_ROOT_FRAMES} frames of "
+              f"{TRAIN_ROOT_HW} in {time.perf_counter() - t0:.2f} s")
+    return str(root)
+
+
+def train_lift_cells(cfg, batch: int) -> torch.Tensor:
+    """The all-bin cells of the first batch `runner.train` takes from
+    `train_root(exp_layout(cfg))` (the train set's augmentation, seed 0),
+    on the CPU: (batch, D, fH * fW) int32."""
+    from sgv3d_tpu_torch import runner
+    from sgv3d_tpu_torch.data.dataset import DataLoader, RoadSideDataset
+    from sgv3d_tpu_torch.nn.lss_fpn import compute_lift_cells
+
+    root = train_root(exp_layout(cfg))
+    info, _ = runner.default_info_paths(cfg, root)
+    dataset = RoadSideDataset(cfg.ida_aug_conf, cfg.classes, root, info, is_train=True,
+                              max_objs=cfg.head.max_objs, seed=0, device_normalize=True)
+    loader = DataLoader(dataset, batch, shuffle=True, drop_last=True, seed=0,
+                        prefetch=False)
+    mats = next(iter(loader))[1]
+    m = {k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in mats.items()}
+    bb = cfg.backbone
+    f_h, f_w = bb.feat_hw
+    cells = compute_lift_cells(bb, m, train=True)
+    return cells.reshape(batch, bb.num_height_bins, f_h * f_w).contiguous()
+
+
+# the training lifts no card ran before: (exp, its batch), the table of
+# PERF.md's kernel rows (J = 180 at 65,536 cells, 19-bit keys; SGV3D's
+# 180 bins at stride 8; 123,904 cells, 20-bit keys)
+K2B_WIDE = (("bevheight_rope3d_r101_256", 8), ("sgv3d_r101_256", 2),
+            ("bevheight_rope3d_r101_140m", 8))
+
+
+def k2b_wide_cases(dev) -> dict:
+    """K2b's (and K2's) inputs at K2B_WIDE's shapes, tag -> (grad, height,
+    context, cells, batch, num_cells, feat_w): "_<exp>_rig" the cells of
+    `make_batch(cfg, batch, seed=0)`'s rig, "_<exp>_train" those of the
+    exp's first training batch on its fake root (`train_lift_cells`) and
+    "_<exp>_uniform" uniform ones, a quarter in the trash (a tile's points
+    share next to no rows: g read from L2 or HBM a point); heights,
+    context (C = 80, SGV3D 87) and g seeded."""
+    from sgv3d_tpu_torch.configs import get_exp
+    from sgv3d_tpu_torch.data.synthetic import make_batch
+    from sgv3d_tpu_torch.nn.lss_fpn import compute_lift_cells
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    cases = {}
+    for exp, batch in K2B_WIDE:
+        cfg = get_exp(exp)
+        bb = cfg.backbone
+        f_h, f_w = bb.feat_hw
+        num_y, num_x = (int(v) for v in bb.voxel_grid.voxel_num[1::-1])
+        c = bb.output_channels + (bb.semantic_channels if bb.is_bsm else 0)
+        _, mats, *_ = make_batch(cfg, batch, seed=0)
+        m = {k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in mats.items()}
+        rig = compute_lift_cells(bb, m, train=True).reshape(batch, bb.num_height_bins,
+                                                           f_h * f_w)
+        uniform = torch.randint(0, num_y * num_x, rig.shape, generator=g, device=dev,
+                                dtype=torch.int32)
+        trash = torch.rand(rig.shape, generator=g, device=dev) < 0.25
+        uniform = torch.where(trash, num_y * num_x, uniform).to(torch.int32)
+        for kind, cells in (("rig", rig), ("train", train_lift_cells(cfg, batch)),
+                            ("uniform", uniform)):
+            cells = cells.contiguous().to(dev)
+            n, j, hw = cells.shape
+            height = torch.rand(n, j, hw, generator=g, device=dev)
+            ctx = torch.randn(n, hw, c, generator=g, device=dev)
+            grad = torch.randn(batch, num_y * num_x, c, generator=g, device=dev)
+            cases[f"_{exp}_{kind}"] = (grad, height, ctx, cells, batch, num_y * num_x, f_w)
+    return cases
+
+
 def tile_distinct_cells(cells: torch.Tensor, num_cells: int, feat_w: int,
                         tile: tuple[int, int]) -> tuple[torch.Tensor, torch.Tensor]:
     """Per tile of tile[0] x tile[1] pixels of each camera of cells (N, J,
@@ -2053,12 +2301,15 @@ def sweep_k2b(iters: int = 20) -> dict:
 def phase_k2b(dev, smi) -> dict:
     """K2b, the lift's backward, against `lift_splat_backward_plain` on each
     case of `k2b_cases` (uniform and rig cells, all-bin and top-k, and
-    ragged): within 1e-5 * max|ref| + 1e-6, bitwise equal across two runs,
-    trash points' d_height exactly 0. Graph-timed beside the plain version
-    and its bound, with the share of live points the kernel read from its
-    staged rows (`served`), at least the share of the tiles whose distinct
-    cells all fit its rows; K2's forward is timed at the training shape too
-    (batch 2)."""
+    ragged) and of `k2b_wide_cases` (the K2B_WIDE exps' training lifts on
+    their rigs' cells and on their first training batches' cells): within
+    1e-5 * max|ref| + 1e-6, bitwise equal across two runs, trash points'
+    d_height exactly 0. Graph-timed beside the plain version and its bound,
+    with the share of live points the kernel read from its staged rows
+    (`served`), at least the share of the tiles whose distinct cells all
+    fit its rows; K2's forward is held and timed at the training shape too
+    (batch 2) and on every wide case, its prep's order exactly the plain
+    prep's there (`check_prep`)."""
     from sgv3d_tpu_torch.ops.lift_splat import (
         backward_plan, lift_splat_backward, lift_splat_backward_plain,
         lift_splat_forward, lift_splat_plain)
@@ -2069,8 +2320,10 @@ def phase_k2b(dev, smi) -> dict:
              "max_abs_err": 0.0, "library_ms": None,
              "library_note": "none: no single PyTorch call gathers g rows at "
                              "cells and reduces them both ways"}
-    k2_train = {}
-    for tag, (grad, height, ctx, cells, batch, num_cells, feat_w) in k2b_cases(dev).items():
+    k2_train, k2_wide = {}, {}
+    wide = k2b_wide_cases(dev)
+    for tag, (grad, height, ctx, cells, batch, num_cells, feat_w) in {
+            **k2b_cases(dev), **wide}.items():
         n, j, hw = height.shape
         c = ctx.shape[-1]
         args = (grad, height, ctx, cells, batch, num_cells, feat_w)
@@ -2124,22 +2377,36 @@ def phase_k2b(dev, smi) -> dict:
               f"served from staged rows {share:.4f} (tiles that fit: "
               f"{fits / live:.4f}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}) ({smi})")
-        if tag == "":
+        if tag == "" or tag in wide:
             fwd = (height, ctx, cells, batch, num_cells)
             out, ref_f = lift_splat_forward(*fwd), lift_splat_plain(*fwd)
             err = float((out - ref_f).abs().max())
-            if not err <= 1e-5 * float(ref_f.abs().max()) + 1e-6:
-                raise AssertionError(f"K2 at the training shape: max|err| {err}")
-            k2_train = {"ms": _graph_ms(lambda: lift_splat_forward(*fwd)),
-                        "plain_ms": _cuda_ms(lambda: lift_splat_plain(*fwd), iters=5),
-                        "shape": [n, j, hw, c], "max_abs_err": err}
-            k2_train["bound_ms"], k2_train["bound_by"] = _bound(
-                (height, ctx, cells, out), 2.0 * height.numel() * c, PEAK_FP32_FLOPS)
-            print(f"[train] K2 lift_splat all-bin at the training shape ({n}, {j}, "
-                  f"{hw}) x {c}, batch 2: max|err| {err:.3e}; kernel "
-                  f"{k2_train['ms']:.4f} ms, plain {k2_train['plain_ms']:.4f} ms, "
-                  f"bound {k2_train['bound_ms']:.4f} ms ({smi})")
+            if not (err <= 1e-5 * float(ref_f.abs().max()) + 1e-6
+                    and torch.equal(out, lift_splat_forward(*fwd))):
+                raise AssertionError(f"K2{tag} at the training shape: max|err| {err}, "
+                                     f"or not bitwise deterministic")
+            row = {"ms": _graph_ms(lambda: lift_splat_forward(*fwd)),
+                   "plain_ms": _cuda_ms(lambda: lift_splat_plain(*fwd), iters=5),
+                   "shape": [n, j, hw, c], "max_abs_err": err}
+            # all points' products at the training shape (as its row was
+            # always counted); the wide cases count their live points' and
+            # hold the prep's order
+            flops = 2.0 * (height.numel() if tag == "" else live) * c
+            row["bound_ms"], row["bound_by"] = _bound((height, ctx, cells, out), flops,
+                                                      PEAK_FP32_FLOPS)
+            if tag in wide:
+                check_prep(height, cells, batch, num_cells, f"K2{tag}")
+                row.update(live_points=live, num_cells=num_cells, batch=batch)
+                k2_wide[tag] = row
+            else:
+                k2_train = row
+            print(f"[train] K2 lift_splat{tag or ' all-bin at the training shape'} "
+                  f"({n}, {j}, {hw}) x {c} into {num_cells} cells, batch {batch}: "
+                  f"max|err| {err:.3e}{', prep order exact' if tag else ''}; kernel "
+                  f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}) ({smi})")
     entry["k2_train"] = k2_train
+    entry["k2_wide"] = k2_wide
     return entry
 
 
@@ -3327,6 +3594,456 @@ def phase_train_full(dev, smi) -> dict:
     # the root and the checkpoints of steps 10 and 12 stay for phase_offline,
     # which evaluates the directory without jax and then removes TRAIN_DIR
     return row
+
+
+WIDE_TRAIN_EXP = "bevheight_rope3d_r101_256"   # r101, remat, J = 180, 65,536 cells
+WIDE_TRAIN_STEPS = 3
+WIDE_STEP_BATCH = 2     # the float32 step, kernels against plain versions
+
+
+@contextlib.contextmanager
+def plain_lift(seed: int | None = None, forward: bool = True):
+    """Within the block `LiftSplat` runs K2's and K2b's plain versions
+    (`lift_splat_plain`, `lift_splat_backward_plain`) on the card's
+    tensors; with `forward` False only K2b's, the forward staying K2's.
+    With `seed`, on inputs whose bins, pixels and channels are permuted
+    alike (torch.Generator(seed)) and outputs permuted back: the same sums
+    in other orders, the points' into each cell, the bins' into d_ctx and
+    the channels' into d_height."""
+    from sgv3d_tpu_torch.ops import lift_splat
+
+    fwd, bwd = lift_splat.lift_splat_forward, lift_splat.lift_splat_backward
+    plain_fwd, plain_bwd = lift_splat.lift_splat_plain, lift_splat.lift_splat_backward_plain
+
+    def perms(height, context):
+        """(bins, pixels, channels) permutations and their inverses."""
+        gen = torch.Generator().manual_seed(seed)
+        out = [torch.randperm(n, generator=gen).to(height.device)
+               for n in (height.shape[1], height.shape[2], context.shape[-1])]
+        return out, [torch.argsort(q) for q in out]
+
+    def forward_plain(height, context, cells, batch, num_cells):
+        if seed is None:
+            return plain_fwd(height, context, cells, batch, num_cells)
+        (pj, pp, pc), (_, _, ipc) = perms(height, context)
+        return plain_fwd(height[:, pj][:, :, pp], context[:, pp][..., pc],
+                         cells[:, pj][:, :, pp], batch, num_cells)[..., ipc]
+
+    def backward(grad, height, context, cells, batch, num_cells, feat_w=None,
+                 served=None, height_grad=True):       # feat_w: the kernel's tiling
+        if seed is None:
+            return plain_bwd(grad, height, context, cells, batch, num_cells,
+                             height_grad=height_grad)
+        (pj, pp, pc), (ipj, ipp, ipc) = perms(height, context)
+        d_h, d_c = plain_bwd(grad[..., pc], height[:, pj][:, :, pp],
+                             context[:, pp][..., pc], cells[:, pj][:, :, pp], batch,
+                             num_cells, height_grad=height_grad)
+        return (None if d_h is None else d_h[:, ipj][:, :, ipp]), d_c[:, ipp][..., ipc]
+
+    lift_splat.lift_splat_forward = forward_plain if forward else fwd
+    lift_splat.lift_splat_backward = backward
+    try:
+        yield
+    finally:
+        lift_splat.lift_splat_forward, lift_splat.lift_splat_backward = fwd, bwd
+
+
+def faulty_backward(scale: float):
+    """A wrong K2b: the plain backward with d_height scaled by `scale`."""
+    from sgv3d_tpu_torch.ops.lift_splat import lift_splat_backward_plain
+
+    def backward(*args, served=None, height_grad=True, **kw):
+        d_h, d_c = lift_splat_backward_plain(*args, height_grad=height_grad)
+        return (None if d_h is None else d_h * scale), d_c
+
+    return backward
+
+
+# the planted fault the float32 step's gates must fail: d_height 2% off
+LIFT_FAULT = 1.02
+# the seeds of `plain_lift`'s permuted orders the reference's spread is over
+LIFT_ORDERS = (1, 2, 3, 4)
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """Within the block cuDNN and torch take their deterministic algorithms
+    (`index_add_` included), so that a step run twice is the same bits;
+    the process's settings are restored on exit."""
+    import warnings
+
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=".*deterministic.*")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[2:]
+
+
+def lift_stepped(cfg, state_dict, batch, device, fault: float = LIFT_FAULT) -> dict:
+    """The step gates' `stepped` dict for one float32 `train_step` of `cfg`
+    from `state_dict` on `batch`, deterministic algorithms on: the step
+    with K2 and K2b against the reference, the same step with K2b's plain
+    version (`plain_lift(forward=False)`). The two share the forward's
+    bits, so every branch the step takes (ReLU masks, the L1 terms'
+    signs, BatchNorm's statistics) is the same in both and the gradients
+    differ only by K2b's sums pushed linearly through the backward; the
+    reference's spread is over the plain backward's sums in other orders
+    (`plain_lift(seed, forward=False)`, each seed of LIFT_ORDERS). The
+    step with both plain versions (`plain_lift()`) rounds the forward
+    otherwise, and at full width that flips such branches: other orders
+    of the plain lift's own sums move some leaves by jumps that some
+    orders take and others not, so its gradients have no spread to be
+    held to; its metrics and gradients are kept as "plain_metrics" and
+    "plain_grads". Also "faulty":
+    the dict with the step whose backward is `faulty_backward(fault)` in
+    the kernels' place, and 'launches': K2's and K2b's in the step with
+    the kernels, the reference steps and the plain step."""
+    from sgv3d_tpu_torch.models.bev_height import BEVHeight
+    from sgv3d_tpu_torch.ops import lift_splat
+
+    fwd, bwd = lift_splat.lift_splat_forward, lift_splat.lift_splat_backward
+    fwd.launches = bwd.launches = 0
+    counts = []
+
+    def record(context=contextlib.nullcontext()):
+        before = fwd.launches, bwd.launches
+        with context:
+            out = train_step_record(cfg, state_dict, batch, device)
+        counts.append([fwd.launches - before[0], bwd.launches - before[1]])
+        return out
+
+    with deterministic_algorithms():
+        got = record()
+        ref = record(plain_lift(forward=False))
+        others = [record(plain_lift(seed, forward=False)) for seed in LIFT_ORDERS]
+        lift_splat.lift_splat_backward = faulty_backward(fault)
+        try:
+            faulty = record()
+        finally:
+            lift_splat.lift_splat_backward = bwd
+        plain = record(plain_lift())
+    spread = {name: max(float((o["grads"][name] - g).abs().max()) for o in others)
+              for name, g in ref["grads"].items()}
+    stepped = {"jax_metrics": ref["metrics"], "metrics": got["metrics"],
+               "jax_grads": ref["grads"], "jax_eager_grads": ref["grads"], "spread": spread,
+               "zero_leaves": biases_ahead_of_batchnorm(BEVHeight(cfg)),
+               "grads": got["grads"], "jax_step": ref["step"], "step": got["step"],
+               "is_bsm": cfg.backbone.is_bsm, "reference_steps": 1 + len(others),
+               "plain_metrics": plain["metrics"], "plain_grads": plain["grads"],
+               "launches": {"kernels": counts[0], "reference": counts[1:-2],
+                            "faulty": counts[-2], "plain": counts[-1]}}
+    stepped["faulty"] = {**stepped, "metrics": faulty["metrics"],
+                         "grads": faulty["grads"], "step": faulty["step"]}
+    return stepped
+
+
+def hold_lift_step(stepped, what: str = "the float32 step") -> dict:
+    """`check_loss_and_metrics` and `check_grads`, their bounds as they
+    are, on `lift_stepped`'s dict (the leaves that cancel to rounding on
+    every side held as the biases ahead of a BatchNorm are), and
+    `check_loss_and_metrics` of the step with the kernels against the step
+    with both plain versions; the same gates must fail the "faulty" step.
+    Returns the largest share of a bound and where, the faulty step's, the
+    plain step's metrics' and its gradients' largest deviation over a
+    leaf's scale, and over the leaves held to a bound of their own (the
+    checked leaves) the reference's own spread and the share whose bound
+    is above a tenth of their scale."""
+    cancelled = frozenset(cancelled_leaves(stepped))
+    excess, where = gate_excess(stepped)
+    fault_excess, fault_at = gate_excess(stepped["faulty"])
+    plain = {**stepped, "jax_metrics": stepped["plain_metrics"]}
+    scales = {k: max(float(g.abs().max()), 1e-30) for k, g in stepped["jax_grads"].items()
+              if k not in stepped["zero_leaves"] | cancelled}
+    bounds = leaf_bounds(stepped)
+    spread, at = max((stepped["spread"][k] / v, k) for k, v in scales.items())
+    loose = sum(bounds[k] > 0.1 * v for k, v in scales.items()) / len(scales)
+    plain_dev, plain_at = max(
+        (float((stepped["plain_grads"][k] - stepped["grads"][k]).abs().max()) / v, k)
+        for k, v in scales.items())
+    plain_metric = max(abs(stepped["metrics"][k] - v) / max(abs(v), 1e-30) / metric_rtol(k)
+                       for k, v in stepped["plain_metrics"].items())
+    print(f"[train] {what}, K2 and K2b against the step with K2b's plain version: "
+          f"largest share of a step gate's bound {excess:.3f} ({where}); the "
+          f"reference's spread over {stepped['reference_steps'] - 1} other orders up to "
+          f"{spread:.2e} of a checked leaf's scale ({at}); {loose:.3f} of the "
+          f"{len(scales)} checked leaves bound above a tenth of their scale; d_height "
+          f"{LIFT_FAULT} times K2b's at {fault_excess:.1f} of a bound ({fault_at}); "
+          f"against both plain versions: metrics {plain_metric:.3f} of their tolerance, "
+          f"gradients up to {plain_dev:.2e} of a leaf's scale ({plain_at})")
+    check_loss_and_metrics(stepped)
+    check_grads(stepped, cancelled)
+    check_loss_and_metrics(plain)
+    try:
+        check_loss_and_metrics(stepped["faulty"])
+        check_grads(stepped["faulty"], cancelled)
+    except AssertionError:
+        pass
+    else:
+        raise AssertionError(f"{what}'s gates pass a backward whose d_height is "
+                             f"{LIFT_FAULT} times K2b's ({fault_excess:.3f} of a bound "
+                             f"at {fault_at})")
+    return {"gate_excess": excess, "gate_excess_at": where, "reference_spread": spread,
+            "reference_spread_at": at, "checked_leaves": len(scales), "loose_share": loose,
+            "reference_steps": stepped["reference_steps"], "cancelled": sorted(cancelled),
+            "fault": LIFT_FAULT, "fault_excess": fault_excess, "fault_excess_at": fault_at,
+            "plain_metric_excess": plain_metric, "plain_grad_dev": plain_dev,
+            "plain_grad_dev_at": plain_at}
+
+
+def wide_step_against_plain(cfg, state_dict, dev) -> dict:
+    """One float32 train step of `cfg` at batch WIDE_STEP_BATCH (TF32 off,
+    the ASPPs' dropout off; `_train_batch`'s frames) from `state_dict`,
+    `lift_stepped` held by `hold_lift_step`: K2 and K2b launched in the
+    step with the kernels, K2 alone in the reference's steps, neither in
+    the plain step."""
+    cfg = dataclasses.replace(cfg, batch_size_per_device=WIDE_STEP_BATCH)
+    stepped = lift_stepped(cfg, state_dict, _train_batch(cfg, WIDE_STEP_BATCH, seed=3), dev)
+    launches = stepped["launches"]
+    if not (all(launches["kernels"]) and all(k2 and not k2b for k2, k2b in
+                                              launches["reference"] + [launches["faulty"]])
+            and not any(launches["plain"])):
+        raise AssertionError(f"the float32 step: K2 / K2b launches {launches} (need both "
+                             f"with the kernels, K2 alone in the reference's and the "
+                             f"faulty steps, neither in the plain step)")
+    held = hold_lift_step(stepped)
+    return {"batch": WIDE_STEP_BATCH, **held,
+            "launches": dict(zip(("lift_splat", "lift_splat_bwd"), launches["kernels"])),
+            "total_loss": stepped["metrics"]["total_loss"],
+            "plain_total_loss": stepped["plain_metrics"]["total_loss"]}
+
+
+def phase_train_wide(dev, smi) -> dict:
+    """WIDE_TRAIN_EXP at its own batch (8), 864x1536, bf16 image side,
+    through `runner.train` for WIDE_TRAIN_STEPS steps on a fake Rope3D root
+    (`train_root`), then `runner.evaluate` of the step's checkpoint over the
+    root's val frames at full width, parity-grade, each inside
+    `runner_stats` and gated by `train_eval_row` as `--train-all`'s exps
+    are; beside that, the state the run returned and its checkpoint
+    restored into a fresh one bitwise equal, and K2's prep order on its
+    first training call exact. Then `wide_step_against_plain` at batch 2.
+    Prints ms a step, peak memory, launches and the share of K2b's first
+    call's live points served from its staged rows."""
+    from sgv3d_tpu_torch import runner
+    from sgv3d_tpu_torch.configs import get_exp
+    from sgv3d_tpu_torch.ops import lift_splat
+    from sgv3d_tpu_torch.ops.lift_splat import backward_plan
+    from sgv3d_tpu_torch.train.checkpoint import CheckpointManager
+    from sgv3d_tpu_torch.train.loop import create_train_state
+
+    cfg = get_exp(WIDE_TRAIN_EXP)
+    root = train_root(exp_layout(cfg))
+    out = TRAIN_ROOTS / "out_wide"
+    shutil.rmtree(out, ignore_errors=True)
+    train, ev, inputs, ev_inputs = {}, {}, {}, {}
+    t0 = time.perf_counter()
+    with captured_calls(inputs), runner_stats(train), \
+            contextlib.redirect_stdout(io.StringIO()):
+        state = runner.train(cfg, data_root=root, output_dir=str(out),
+                             max_steps=WIDE_TRAIN_STEPS, device=dev, backup=False)
+    torch.cuda.synchronize()
+    train["seconds"] = time.perf_counter() - t0
+    train["checked"] = check_captured(inputs, f"{cfg.name} training")
+    ckpt = CheckpointManager(str(out / "checkpoints"))
+    fresh = create_train_state(cfg, seed=1, device=dev)
+    ckpt.restore(fresh)
+    saved = state.model.state_dict()
+    if not (fresh.step == state.step == WIDE_TRAIN_STEPS
+            and ckpt.all_steps() == [WIDE_TRAIN_STEPS]
+            and fresh.optimizer.count == state.optimizer.count
+            and all(torch.equal(v, saved[k]) for k, v in fresh.model.state_dict().items())
+            and all(torch.equal(a, b) for a, b in zip(
+                fresh.optimizer.mu + fresh.optimizer.nu,
+                state.optimizer.mu + state.optimizer.nu))):
+        raise AssertionError(f"{cfg.name}: the restored state (step {fresh.step}, "
+                             f"checkpoints {ckpt.all_steps()}) differs from the saved "
+                             f"one (step {state.step})")
+    state_dict = {k: v.detach().cpu() for k, v in saved.items()}
+    del state, fresh, saved
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with captured_calls(ev_inputs), runner_stats(ev):
+        _quiet_evaluate(cfg=dataclasses.replace(cfg, is_train_height=False),
+                        ckpt_path=str(out / "checkpoints"), ckpt_step=WIDE_TRAIN_STEPS,
+                        data_root=root, output_dir=str(out / "eval"), device=dev)
+    ev["seconds"] = time.perf_counter() - t0
+    ev["checked"] = check_captured(ev_inputs, f"{cfg.name} evaluation")
+    del ev_inputs
+    row = train_eval_row(cfg.name, out, WIDE_TRAIN_STEPS, train, ev, smi, "[train]")
+    height, _, cells, batch, num_cells = inputs["lift_splat_forward_train"]
+    live = check_prep(height, cells, batch, num_cells, f"{cfg.name} training")
+    grad, height, ctx, cells, batch, num_cells, feat_w = inputs["lift_splat_backward"]
+    served = torch.zeros(1, dtype=torch.int32, device=dev)
+    lift_splat.lift_splat_backward(grad, height, ctx, cells, batch, num_cells, feat_w,
+                                   served=served)
+    share = int(served) / live
+    plan = backward_plan(height.shape[1], ctx.shape[-1])
+    del inputs, grad, height, ctx, cells
+    row.update(launches={k: train["launches"][k] for k in ("lift_splat", "lift_splat_bwd")},
+               live_points=live, smem_share=share, tile=[*plan["tile"], plan["rows"]])
+    print(f"[train] {cfg.name}: checkpoint of step {WIDE_TRAIN_STEPS} restored bitwise; "
+          f"K2's first training call {tuple(row['checked']['lift_splat_train_shape'])}, "
+          f"prep order exact ({live} live points); K2b's served from staged rows "
+          f"{share:.4f} ({plan['rows']} rows)")
+    row["fp32_step"] = step = wide_step_against_plain(cfg, state_dict, dev)
+    print(f"[train] {cfg.name} one float32 step at batch {step['batch']}, TF32 off, "
+          f"deterministic algorithms, K2 / K2b launches {step['launches']}: "
+          f"check_loss_and_metrics and check_grads pass ({step['gate_excess']:.3f} of a "
+          f"bound at most) and fail d_height {LIFT_FAULT} times K2b's "
+          f"({step['fault_excess']:.1f}); total_loss {step['total_loss']:.6f}, "
+          f"{step['plain_total_loss']:.6f} with both plain versions")
+    shutil.rmtree(out)
+    return row
+
+
+# `--train-all`: every exp but the ones the default run trains (sgv3d_r50_128
+# in phase_train_full, WIDE_TRAIN_EXP in phase_train_wide), each at its own
+# batch_size_per_device
+TRAIN_ALL_EXPS = ("bevheight_dair_r18_128", "bevheight_dair_r50_128",
+                  "bevheight_dair_r50_256", "bevheight_dair_r101_128",
+                  "bevheight_dair_r101_256", "bevheight_rope3d_r50_128",
+                  "bevheight_rope3d_r101_140m", "sgv3d_r101_256")
+TRAIN_ALL_STEPS = 3
+
+
+def train_all_runs(exps=TRAIN_ALL_EXPS) -> list:
+    """`phase_train_all`'s runs, (exp, module, argv): for each exp
+    `tools.train` for TRAIN_ALL_STEPS steps on `train_root` of its layout,
+    then `tools.train -e` on that run's step-TRAIN_ALL_STEPS checkpoint over
+    the root's val frames (parity-grade, full width), under
+    TRAIN_ROOTS/all/<exp>."""
+    from sgv3d_tpu_torch.configs import get_exp
+
+    runs = []
+    for exp in exps:
+        root = train_root(exp_layout(get_exp(exp)))
+        out = TRAIN_ROOTS / "all" / exp
+        runs += [(exp, "sgv3d_tpu_torch.tools.train",
+                  [exp, "--data_root", root, "--output_dir", str(out), "--max_steps",
+                   str(TRAIN_ALL_STEPS), "--no_backup", "--no_resume"]),
+                 (exp, "sgv3d_tpu_torch.tools.train",
+                  [exp, "-e", "--ckpt_path", str(out / "checkpoints"), "--ckpt_step",
+                   str(TRAIN_ALL_STEPS), "--data_root", root, "--output_dir",
+                   str(out / "eval")])]
+    return runs
+
+
+def _gib(v) -> str:
+    return "not measured (no card)" if v is None else f"{v:.2f} GiB"
+
+
+def train_eval_row(exp: str, out: Path, steps: int, train: dict, ev: dict, smi: str,
+                   tag: str) -> dict:
+    """One exp's training run under `out` and the evaluation of its
+    step-`steps` checkpoint under `out/eval`, from their `runner_stats`
+    records (`train`, `ev`, each with its `check_captured` dict as
+    "checked" and its "seconds"), after the gates: finite losses over
+    `steps` steps and the step's checkpoint, K2 and K2b launched alike
+    every step, their first training calls and K2's first evaluating call
+    held; the evaluation's results file, a KITTI file for every val frame,
+    its lines finite, and every box it kept through the KITTI writer with
+    no threshold and the layout's calibration (`kitti_probe`): a line for
+    each box of a class the writer maps, at least one, every field finite,
+    the camera round trip within 1e-3. Prints a line after `tag`."""
+    from sgv3d_tpu_torch.configs import get_exp
+
+    with open(out / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["total_loss"] for r in records]
+    per_step = train["launches_per_step"]
+    lines = kitti_lines(out / "eval")
+    n_lines = sum(len(v) for v in lines.values())
+    results = list((out / "eval" / "metrics" / "R40").glob("epoch_result_*.txt"))
+    probe = ev.get("kitti_probe", {})
+    fails = []
+    if not (len(records) == steps == len(per_step)
+            and all(np.isfinite(v) for r in records for v in r.values())):
+        fails.append(f"losses {losses} over {len(per_step)} steps")
+    if not (os.path.isdir(out / "checkpoints" / str(steps))
+            and all(per_step) and len({tuple(p) for p in per_step}) == 1
+            and all(per_step[0])):
+        fails.append(f"checkpoints {sorted(os.listdir(out / 'checkpoints'))}, K2 / K2b "
+                     f"launches a step {per_step}")
+    if not {"lift_splat_train_shape", "lift_splat_bwd_shape"} <= set(train["checked"]) \
+            or "lift_splat_shape" not in ev["checked"]:
+        fails.append(f"first calls held: train {sorted(train['checked'])}, "
+                     f"eval {sorted(ev['checked'])}")
+    if not (len(lines) == TRAIN_ROOT_FRAMES and results
+            and all(np.isfinite(x).all() for v in lines.values() for _, x in v)):
+        fails.append(f"{len(lines)} KITTI files ({n_lines} lines), results {results}")
+    if not (probe and 0 < probe["lines"] == probe["expected"] <= probe["boxes"]
+            and probe["finite"] and probe["round_trip"] <= 1e-3):
+        fails.append(f"the kept boxes through the KITTI writer: {probe}")
+    if fails:
+        raise AssertionError(f"{tag} {exp}: " + "; ".join(fails))
+    step_s, waits = train["train"]["step_s"], train["train"]["loader_wait_s"]
+    steady = step_s[1:]             # step 1 holds the warm-up
+    batch_s = ev["evaluate"]["batch_s"]
+    eval_steady = batch_s[1:-1] or batch_s[1:]
+    cfg = get_exp(exp)
+    row = {"exp": exp, "batch": cfg.batch_size_per_device, "steps": steps,
+           "ms_per_step": 1e3 * float(np.median(steady)), "first_step_s": step_s[0],
+           "loader_wait_share": sum(waits[1:len(step_s)]) / sum(steady),
+           "peak_mem_gib": train.get("peak_mem_gib"),
+           "launches_per_step": dict(zip(("lift_splat", "lift_splat_bwd"), per_step[0])),
+           "losses": losses, "eval_s_per_batch": float(np.mean(eval_steady)),
+           "eval_batches": len(batch_s), "eval_peak_mem_gib": ev.get("peak_mem_gib"),
+           "eval_loader_wait_s": float(sum(ev["evaluate"]["loader_wait_s"][2:])),
+           "eval_launches": ev["launches"]["lift_splat"], "kitti_lines": n_lines,
+           "kitti_probe": probe, "mAP": float(results[0].stem.split("_")[-1]),
+           "train_run_s": train["seconds"], "eval_run_s": ev["seconds"],
+           "checked": {**train["checked"],
+                       **{"eval_" + k: v for k, v in ev["checked"].items()}}}
+    print(f"{tag} {exp} batch {row['batch']}: {row['ms_per_step']:.1f} ms a step "
+          f"(steps 2-{steps}, median; first {step_s[0]:.2f} s), loader wait "
+          f"{row['loader_wait_share']:.3f}, peak {_gib(row['peak_mem_gib'])}, K2 / K2b "
+          f"launches {per_step[0][0]} / {per_step[0][1]} a step, losses "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; first calls K2 "
+          f"{train['checked']['lift_splat_train_max_abs_err']:.2e}, K2b "
+          f"{train['checked']['lift_splat_bwd_max_abs_err']:.2e}; eval "
+          f"{row['eval_s_per_batch']:.3f} s a batch over {len(batch_s)} batches, "
+          f"{len(lines)} KITTI files, {n_lines} lines finite; the {probe['boxes']} kept "
+          f"boxes (highest score {probe['max_score']:.4f}) through the writer with no "
+          f"threshold: {probe['lines']} lines, finite, camera round trip "
+          f"{probe['round_trip']:.1e}; K2 launches {row['eval_launches']}, first call "
+          f"{ev['checked']['lift_splat_max_abs_err']:.2e}, peak "
+          f"{_gib(row['eval_peak_mem_gib'])}; runs {train['seconds']:.1f} + "
+          f"{ev['seconds']:.1f} s ({smi})")
+    return row
+
+
+def phase_train_all(smi) -> dict:
+    """`--train-all`: every exp of TRAIN_ALL_EXPS trained at its own batch
+    for TRAIN_ALL_STEPS steps through `tools.train` on a fake root of its
+    own dataset's layout, then its checkpoint evaluated at full width
+    through `tools.train -e`, all in one process without jax
+    (`run_checked`: each run's first kernel calls held against their plain
+    versions there, its launches, host timing and peak memory kept by
+    `runner_stats`); `train_eval_row` gates and prints each exp."""
+    from sgv3d_tpu_torch.configs import get_exp
+
+    shutil.rmtree(TRAIN_ROOTS / "all", ignore_errors=True)
+    t0 = time.perf_counter()
+    for layout in sorted({exp_layout(get_exp(e)) for e in TRAIN_ALL_EXPS}):
+        train_root(layout)
+    runs = train_all_runs()
+    roots_s = time.perf_counter() - t0
+    records = run_checked([(module, argv, {}, True) for _, module, argv in runs],
+                          timeout=1100)
+    rows = {exp: train_eval_row(exp, TRAIN_ROOTS / "all" / exp, TRAIN_ALL_STEPS,
+                                records[2 * i], records[2 * i + 1], smi, "[train-all]")
+            for i, exp in enumerate(TRAIN_ALL_EXPS)}
+    seconds = time.perf_counter() - t0
+    print(f"[train-all] {len(rows)} exps trained and evaluated in one process in "
+          f"{seconds - roots_s:.1f} s (the fake roots {roots_s:.1f} s)")
+    shutil.rmtree(TRAIN_ROOTS)
+    return {"exps": rows, "seconds": seconds, "roots_s": roots_s}
 
 
 SAM_TINY = dict(img_size=96, patch_size=16, embed_dim=32, depth=3, num_heads=2,
@@ -5250,6 +5967,10 @@ def main() -> int:
         print(json.dumps({"profile": phase_profile(smi, full=True), "device": smi},
                          default=str))
         return 0
+    if sys.argv[1:] == ["--train-all"]:
+        phase_build()
+        print(json.dumps({"train_all": phase_train_all(smi), "device": smi}, default=str))
+        return 0
     if sys.argv[1:] == ["--bench"]:
         phase_build()
         print(json.dumps({"bench": phase_bench(smi), "device": smi}))
@@ -5291,6 +6012,8 @@ def main() -> int:
     voxel_pool = timed(phase_voxel_pool, dev, smi)
     timed(phase_train_tiny, dev)
     training = timed(phase_train_full, dev, smi)
+    wide = timed(phase_train_wide, dev, smi)
+    shutil.rmtree(TRAIN_ROOTS)      # phase_k2b's and phase_train_wide's fake roots
     sam = timed(phase_sam, dev, smi)
     distributed = timed(phase_dist, dev, smi)
     mesh = timed(phase_mesh, dev, smi)
@@ -5304,6 +6027,14 @@ def main() -> int:
     k2b["launches"] = training["launches"]["lift_splat_bwd"]
     k2b["launches_per_step"] = training["launches_per_step"]["lift_splat_bwd"]
     kernels.append(k2b)
+    for entry in kernels:
+        if entry["name"] in wide["launches"]:
+            entry["launches_train_wide"] = wide["launches"][entry["name"]]
+            entry["launches_train_wide_per_step"] = wide["launches_per_step"][entry["name"]]
+            key = "lift_splat_train" if entry["name"] == "lift_splat" else entry["name"]
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       wide["checked"][f"{key}_max_abs_err"])
+    k2b["smem_share_train_wide"] = wide["smem_share"]
     topk = training["train_lift_top_k"]
     for entry in kernels:
         if entry["name"] in topk["launches"]:
@@ -5368,6 +6099,9 @@ def main() -> int:
             entry["launches_train"] = training["launches"][entry["name"]]
             entry["launches_train_per_step"] = training["launches_per_step"][entry["name"]]
             entry.update({f"{k}_train": v for k, v in k2b.pop("k2_train").items()})
+            for tag, row in k2b.pop("k2_wide").items():
+                entry.update({f"{k}{tag}": v for k, v in row.items()})
+                entry["max_abs_err"] = max(entry["max_abs_err"], row["max_abs_err"])
         if entry["name"] in launches_r101:
             entry["launches_r101"] = launches_r101[entry["name"]]
         for path, row in evaluation.items():
@@ -5380,7 +6114,7 @@ def main() -> int:
     print(f"[env] chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels + voxel_pool + k4, "sgv3d_full_width": sgv3d,
                       "r101_full_width": full, "r101_eval": evaluation,
-                      "sgv3d_train": training, "sam_vit_b": sam,
+                      "sgv3d_train": training, "train_wide": wide, "sam_vit_b": sam,
                       "dist": distributed, "mesh": mesh, "c4": c4, "weights": weights,
                       "learn": learn, "big": big, "parity": parity, "bench": bench,
                       "serving": serving, "profile": profile,

@@ -85,13 +85,31 @@ def make_batch(cfg: ExpConfig, batch: int, seed: int = 0, num_objs: int = 12,
     return imgs, mats, gt_boxes, gt_labels, gt_semantic
 
 
+LAYOUTS = ("rope3d-kitti", "dair-v2x-i", "rope3d")
+
+
 def write_fake_kitti_root(root, n_frames: int = 6, src_hw=(216, 384),
                           seed: int = 0, learnable: bool = False,
-                          static_scene: bool = False):
+                          static_scene: bool = False,
+                          layout: str = "rope3d-kitti"):
     """Write a tiny on-disk rope3d-kitti-style dataset tree (images, masks,
     calib, label_eval GT, train/val info pkls) for integration tests and
     `chip_smoke.py`'s eval phase; the same seed writes the same files as
     the JAX package's. Returns the root path (str).
+
+    `layout` writes the same frames in another dataset's own tree instead,
+    as `runner.train`/`evaluate` and the evaluator's calibration readers
+    find it from the root's name (which must then end in the layout's
+    name): "dair-v2x-i", raw DAIR-V2X-I (`image/<id>.jpg`, the
+    `calib/camera_intrinsic` and `calib/virtuallidar_to_camera` json files,
+    `dair_12hz_infos_*.pkl` with `gen_info_dair`'s tokens, the GT in the
+    sibling `dair-v2x-i-kitti/training/label_2`); "rope3d", raw Rope3D
+    (`training-image_2a/<token>.jpg`, `training/calib` P2 and
+    `training/denorm` files by token, `rope3d_12hz_infos_*.pkl`, the GT in
+    `training/label_eval/<id>.txt`, the sibling
+    `rope3d-kitti/map_token2id.json`), the camera as `gen_info_rope3d`
+    reads it from its denorm. Neither has semantic masks (only SGV3D reads
+    them). The random draws are the same in every layout.
 
     `static_scene` keeps the SAME object positions in every frame (a
     roadside rig watching parked cars): the easiest learnable scene — a toy
@@ -101,15 +119,34 @@ def write_fake_kitti_root(root, n_frames: int = 6, src_hw=(216, 384),
     Layout mirrors what `tools/converters` produce from the real datasets
     (the reference's scripts/data_converter/... output conventions).
     """
+    import json
     import os
     import pickle
 
     from PIL import Image
 
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout {layout!r}: one of {LAYOUTS}")
     h_img, w_img = src_hw
     root = str(root)
-    for sub in ("images", "training/mask_image", "training/calib",
-                "training/label_eval"):
+    if layout != "rope3d-kitti" and not root.rstrip("/").endswith(layout):
+        raise ValueError(f"a {layout} root's name ends in {layout!r}: {root}")
+    parent = os.path.dirname(root.rstrip("/"))
+    img_dir, calib_dir, gt_dir = {
+        "rope3d-kitti": ("images", "training/calib", "training/label_eval"),
+        "dair-v2x-i": ("image", "calib", os.path.join(
+            parent, "dair-v2x-i-kitti", "training", "label_2")),
+        "rope3d": ("training-image_2a", "training/calib", "training/label_eval"),
+    }[layout]
+    subs = [img_dir, calib_dir, gt_dir]
+    if layout == "rope3d-kitti":
+        subs.append("training/mask_image")
+    elif layout == "dair-v2x-i":
+        subs = [img_dir, gt_dir, "calib/camera_intrinsic",
+                "calib/virtuallidar_to_camera"]
+    else:
+        subs.append("training/denorm")
+    for sub in subs:
         os.makedirs(os.path.join(root, sub), exist_ok=True)
     rng = np.random.default_rng(seed)
     infos = []
@@ -120,6 +157,14 @@ def write_fake_kitti_root(root, n_frames: int = 6, src_hw=(216, 384),
     s2e = np.eye(4)
     s2e[:3, :3] = cam2ego_rot
     s2e[:3, 3] = [0, 0, cam_h]
+    denorm = None
+    if layout == "rope3d":
+        # the camera gen_info_rope3d reads back from the ground plane
+        from sgv3d_tpu_torch.evalkit.kitti_writer import get_cam2lidar_from_denorm
+
+        denorm = geom.get_denorm(np.linalg.inv(s2e))
+        s2e = get_cam2lidar_from_denorm(denorm)
+        cam2ego_rot, cam_h = s2e[:3, :3], float(s2e[2, 3])
     velo2cam = np.linalg.inv(s2e)
     for i in range(n_frames):
         if learnable:
@@ -130,14 +175,28 @@ def write_fake_kitti_root(root, n_frames: int = 6, src_hw=(216, 384),
         else:
             img = (rng.random((h_img, w_img, 3)) * 255).astype(np.uint8)
         mask = (rng.integers(0, 4, (h_img, w_img, 3)) * 40).astype(np.uint8)
-        np.save(os.path.join(root, "training/mask_image", f"{i:06d}.npy"),
-                mask)
-        with open(os.path.join(root, "training/calib", f"{i:06d}.txt"),
-                  "w") as f:
-            f.write(f"P2: {K[0,0]} 0 {K[0,2]} 0 0 {K[1,1]} {K[1,2]} 0 "
-                    "0 0 1 0\n")
-            row = velo2cam[:3].reshape(-1)
-            f.write("Tr_velo_to_cam: " + " ".join(f"{v}" for v in row) + "\n")
+        name = f"frame_{i:06d}" if layout == "rope3d" else f"{i:06d}"
+        if layout == "rope3d-kitti":
+            np.save(os.path.join(root, "training/mask_image", f"{i:06d}.npy"),
+                    mask)
+        if layout == "dair-v2x-i":
+            with open(os.path.join(root, "calib/camera_intrinsic",
+                                   f"{name}.json"), "w") as f:
+                json.dump({"cam_K": K.reshape(-1).tolist()}, f)
+            with open(os.path.join(root, "calib/virtuallidar_to_camera",
+                                   f"{name}.json"), "w") as f:
+                json.dump({"rotation": velo2cam[:3, :3].tolist(),
+                           "translation": velo2cam[:3, 3:].tolist()}, f)
+        else:
+            with open(os.path.join(root, calib_dir, f"{name}.txt"), "w") as f:
+                f.write(f"P2: {K[0,0]} 0 {K[0,2]} 0 0 {K[1,1]} {K[1,2]} 0 "
+                        "0 0 1 0\n")
+                row = velo2cam[:3].reshape(-1)
+                f.write("Tr_velo_to_cam: " + " ".join(f"{v}" for v in row) + "\n")
+        if denorm is not None:
+            with open(os.path.join(root, "training/denorm", f"{name}.txt"),
+                      "w") as f:
+                f.write(" ".join(f"{v}" for v in denorm) + "\n")
         gt_lines = []
         anns = []
         if static_scene and i == 0:
@@ -169,14 +228,15 @@ def write_fake_kitti_root(root, n_frames: int = 6, src_hw=(216, 384),
             gt_lines.append(
                 f"Car 0 0 0.5 100 100 200 200 1.6 4.5 1.9 "
                 f"{cam[0]:.4f} {cam[1]:.4f} {cam[2]:.4f} {np.pi/2:.4f}")
-        Image.fromarray(img).save(os.path.join(root, "images", f"{i:06d}.jpg"))
-        with open(os.path.join(root, "training/label_eval", f"{i:06d}.txt"),
-                  "w") as f:
+        filename = f"{img_dir}/{name}.jpg"
+        Image.fromarray(img).save(os.path.join(root, filename))
+        with open(os.path.join(root, gt_dir, f"{i:06d}.txt"), "w") as f:
             f.write("\n".join(gt_lines) + "\n")
         infos.append(dict(
-            sample_token=f"{i:06d}", scene_token="s0",
+            sample_token={"rope3d-kitti": f"{i:06d}", "dair-v2x-i": filename,
+                          "rope3d": name}[layout], scene_token="s0",
             cam_infos={"CAM_FRONT": dict(
-                filename=f"images/{i:06d}.jpg",
+                filename=filename,
                 calibrated_sensor=dict(
                     rotation_matrix=cam2ego_rot.tolist(),
                     translation=[0.0, 0.0, cam_h],
@@ -185,8 +245,16 @@ def write_fake_kitti_root(root, n_frames: int = 6, src_hw=(216, 384),
                               translation=[0.0, 0.0, 0.0]),
                 timestamp=0)},
             sweeps=[], ann_infos=anns))
-    for name in ("rope3d_12hz_infos_train_dair.pkl",
-                 "rope3d_12hz_infos_val_dair.pkl"):
+    names = {"rope3d-kitti": ("rope3d_12hz_infos_train_dair.pkl",
+                              "rope3d_12hz_infos_val_dair.pkl"),
+             "dair-v2x-i": ("dair_12hz_infos_train.pkl", "dair_12hz_infos_val.pkl"),
+             "rope3d": ("rope3d_12hz_infos_train.pkl", "rope3d_12hz_infos_val.pkl")}
+    for name in names[layout]:
         with open(os.path.join(root, name), "wb") as f:
             pickle.dump(infos, f)
+    if layout == "rope3d":
+        kitti = os.path.join(parent, "rope3d-kitti")
+        os.makedirs(kitti, exist_ok=True)
+        with open(os.path.join(kitti, "map_token2id.json"), "w") as f:
+            json.dump({info["sample_token"]: i for i, info in enumerate(infos)}, f)
     return root

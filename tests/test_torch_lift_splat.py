@@ -40,12 +40,18 @@ def _port(height, ctx, cell, batch, cells):
                             torch.from_numpy(cell), batch, cells).numpy()
 
 
-@pytest.mark.parametrize("layout,j", [("top-k", 16), ("all-bin", 90)])
-def test_plain_matches_lift_splat_pool(rng, layout, j):
-    """Both layouts are (N, J, HW); 2 batch elements x 2 cameras."""
-    n, hw, c, cells = 4, 96, 80, 256
-    height, ctx, cell = _case(rng, n, j, hw, c, cells,
-                              lambda s: rng.integers(0, cells + 1, size=s))
+@pytest.mark.parametrize("layout,j,hw,cells", [("top-k", 16, 96, 256), ("all-bin", 90, 96, 256),
+                                               ("all-bin", 180, 12, 123904)],
+                         ids=["top-k-16", "all-bin-90", "all-bin-180-cells-123904"])
+def test_plain_matches_lift_splat_pool(rng, layout, j, hw, cells):
+    """Both layouts are (N, J, HW); 2 batch elements x 2 cameras. The last
+    case is past both limits the training exps reach, J = 180 and more
+    than 65,536 cells (`bevheight_rope3d_r101_140m`'s 123,904), sparsely
+    occupied (8640 points), a third of the points in the trash cell."""
+    n, c = 4, 80
+    gen = (lambda s: rng.integers(0, cells + 1, size=s)) if cells <= 65536 else (
+        lambda s: np.where(rng.random(s) < 1 / 3, cells, rng.integers(0, cells, size=s)))
+    height, ctx, cell = _case(rng, n, j, hw, c, cells, gen)
     got = _port(height, ctx, cell, 2, cells)
     ref = np.asarray(lift_splat_pool(jnp.asarray(height), jnp.asarray(ctx),
                                      jnp.asarray(cell), 2, cells))

@@ -68,15 +68,19 @@ def _n(t):
 # ---------------------------------------------------------------- K2b
 
 
-@pytest.mark.parametrize("layout,j,feat_w", [("top-k", 4, None), ("all-bin", 13, None),
-                                             ("all-bin", 13, 7)],
-                         ids=["top-k-4", "all-bin-13", "all-bin-13-feat_w-7"])
-def test_backward_plain_matches_jax_vjp(rng, layout, j, feat_w):
+@pytest.mark.parametrize("layout,j,feat_w,hw,cells", [
+    ("top-k", 4, None, 37, 50), ("all-bin", 13, None, 37, 50), ("all-bin", 13, 7, 35, 50),
+    ("all-bin", 180, 4, 12, 123904)],
+    ids=["top-k-4", "all-bin-13", "all-bin-13-feat_w-7", "all-bin-180-cells-123904"])
+def test_backward_plain_matches_jax_vjp(rng, layout, j, feat_w, hw, cells):
     """Two batch elements of two cameras each, a third of the points in the
     trash cell, D = 13 not a multiple of the JAX scan's d_chunk of 10; with
-    `feat_w`, the pixels a 5 x 7 map whose width `LiftSplat` carries to the
-    backward (the gradients do not change with it)."""
-    batch, n, hw, c, cells = 2, 4, 37 if feat_w is None else 35, 9, 50
+    `feat_w`, the pixels a map of that width, which `LiftSplat` carries to
+    the backward (the gradients do not change with it). The last case is
+    past both limits the training exps reach, J = 180 and more than 65,536
+    cells (`bevheight_rope3d_r101_140m`'s 123,904), sparsely occupied: a
+    3 x 4 map's 4320 points over the grid."""
+    batch, n, c = 2, 4, 9
     height = rng.random((n, j, hw)).astype(np.float32)
     ctx = rng.normal(size=(n, hw, c)).astype(np.float32)
     cell = rng.integers(0, cells, size=(n, j, hw)).astype(np.int32)
