@@ -17,6 +17,7 @@ from sgv3d_tpu_torch.models.bev_height import BEVHeight
 from sgv3d_tpu_torch.nn.bev_slabs import canonical_device
 from sgv3d_tpu_torch.nn.lss_fpn import compute_lift_cells, compute_valid_pixels
 from sgv3d_tpu_torch.ops.voxel_pooling import apply_pixel_cull, cull_pixel_indices
+from sgv3d_tpu_torch.train.profiling import span
 from sgv3d_tpu_torch.train.sharding import Mesh
 from sgv3d_tpu_torch.utils.pipeline import pipelined
 
@@ -27,7 +28,8 @@ _RIG_KEYS = ("sensor2ego_mats", "sensor2virtual_mats", "intrin_mats",
 class _Row:
     """One data row of the mesh (without one, the whole batch): the model
     replica that serves it, on the row's first device, its side stream for
-    the detections' copy to the host, and its static-rig cell cache."""
+    the detections' copy to the host, and its static-rig cell cache with
+    its lookups counted (`rig_hits`, `rig_misses`)."""
 
     def __init__(self, model: BEVHeight, device: torch.device):
         self.model = model
@@ -36,6 +38,17 @@ class _Row:
                             else None)
         self.cells = None           # (cells, pix_keep or None) once cached
         self.cells_key = None
+        self.rig_hits = 0
+        self.rig_misses = 0
+
+
+class _Handle(list):
+    """`submit`'s handle: each row's (detections, copy event or None), and
+    the batch's sequence number `seq`."""
+
+    def __init__(self, rows, seq: int):
+        super().__init__(rows)
+        self.seq = seq
 
 
 class BEVHeightPredictor:
@@ -68,6 +81,13 @@ class BEVHeightPredictor:
     own static-rig cache, keyed on its frames' calibration bytes. A mesh
     of one device is the plain path; `cull_pixels=True` under a mesh
     raises `ValueError`.
+
+    Tracing: while a `torch.profiler` runs, each call is a tree of spans
+    in its trace (`train.profiling.span`): `sgv3d.submit` (`upload`,
+    `rig_cells`, `forward` with the model's `image`, `lift` and `head`,
+    `decode` with `decode.rank` and `decode.nms`, `copy`) and
+    `sgv3d.fetch` (`fetch.wait`, `collect`); `submit` and `fetch` carry
+    the batch's sequence number. `batches` counts the batches submitted.
     """
 
     def __init__(self, cfg: ExpConfig, state_dict: Mapping[str, torch.Tensor],
@@ -135,6 +155,7 @@ class BEVHeightPredictor:
         self.model = self._rows[0].model
         grid = cfg.backbone.voxel_grid
         self._num_cells = int(grid.voxel_num[0]) * int(grid.voxel_num[1])
+        self.batches = 0
 
     @property
     def _cells(self):
@@ -148,23 +169,27 @@ class BEVHeightPredictor:
         """The row's cached lift cells (and cull), recomputed when the
         calibration bytes of its frames change. The cull's validity mask is
         computed on the host CPU from the host mats, once per rig."""
-        key = tuple((k, np.asarray(host_mats[k]).tobytes())
-                    for k in _RIG_KEYS if k in host_mats)
-        if key != row.cells_key:
-            cells = compute_lift_cells(self.cfg.backbone, mats)
-            pix = None
-            if self.cull_pixels:
-                cpu_mats = {k: torch.from_numpy(np.asarray(v, np.float32))
-                            for k, v in host_mats.items()}
-                valid = compute_valid_pixels(self.cfg.backbone, cpu_mats).any(0)
-                out = cull_pixel_indices(valid.numpy())
-                if out is not None:
-                    pix_np, n_valid = out
-                    pix = torch.from_numpy(pix_np).to(row.device)
-                    cells = apply_pixel_cull(cells, pix, n_valid, self._num_cells)
-            row.cells = (cells, pix)
-            row.cells_key = key
-        return row.cells
+        with span("rig_cells"):
+            key = tuple((k, np.asarray(host_mats[k]).tobytes())
+                        for k in _RIG_KEYS if k in host_mats)
+            if key == row.cells_key:
+                row.rig_hits += 1
+            else:
+                row.rig_misses += 1
+                cells = compute_lift_cells(self.cfg.backbone, mats)
+                pix = None
+                if self.cull_pixels:
+                    cpu_mats = {k: torch.from_numpy(np.asarray(v, np.float32))
+                                for k, v in host_mats.items()}
+                    valid = compute_valid_pixels(self.cfg.backbone, cpu_mats).any(0)
+                    out = cull_pixel_indices(valid.numpy())
+                    if out is not None:
+                        pix_np, n_valid = out
+                        pix = torch.from_numpy(pix_np).to(row.device)
+                        cells = apply_pixel_cull(cells, pix, n_valid, self._num_cells)
+                row.cells = (cells, pix)
+                row.cells_key = key
+            return row.cells
 
     @staticmethod
     def _upload(arr, device: torch.device) -> torch.Tensor:
@@ -177,10 +202,12 @@ class BEVHeightPredictor:
 
     def _row_inputs(self, row: _Row, imgs: np.ndarray, mats_dict):
         """The model's inputs for `row` from its frames' host arrays."""
-        mats = {k: self._upload(v, row.device) for k, v in mats_dict.items()}
+        with span("upload"):
+            mats = {k: self._upload(v, row.device) for k, v in mats_dict.items()}
+            imgs = self._upload(imgs, row.device)
         cells, pix = (self._rig_cells(row, mats_dict, mats) if self.static_rig
                       else (None, None))
-        return self._upload(imgs, row.device), mats, cells, pix
+        return imgs, mats, cells, pix
 
     @staticmethod
     def _host_images(sweep_imgs) -> np.ndarray:
@@ -224,8 +251,12 @@ class BEVHeightPredictor:
     @torch.inference_mode()
     def _dispatch(self, sweep_imgs, mats_dict) -> list[Detections]:
         """Enqueue one batch on the devices; returns each row's detections."""
-        return [decode(self.cfg.head, row.model(*inputs)[0])
-                for row, inputs in self._shares(sweep_imgs, mats_dict)]
+        out = []
+        for row, inputs in self._shares(sweep_imgs, mats_dict):
+            with span("forward"):
+                preds = row.model(*inputs)[0]
+            out.append(decode(self.cfg.head, preds))
+        return out
 
     @staticmethod
     def _collect(dets: Detections) -> List[list]:
@@ -246,7 +277,7 @@ class BEVHeightPredictor:
         stream, after the compute that made them; returns (host, event)."""
         compute = torch.cuda.current_stream(row.device)
         row.copy_stream.wait_stream(compute)
-        with torch.cuda.stream(row.copy_stream):
+        with span("copy"), torch.cuda.stream(row.copy_stream):
             host = []
             for t in dets:
                 t.record_stream(row.copy_stream)
@@ -260,16 +291,24 @@ class BEVHeightPredictor:
     def submit(self, sweep_imgs, mats_dict):
         """Enqueue one batch and, on CUDA, the copy of its detections to the
         host on each row's side stream; returns a handle for `fetch`."""
-        return [(dets, None) if row.copy_stream is None else self._start_copy(row, dets)
-                for row, dets in zip(self._rows, self._dispatch(sweep_imgs, mats_dict))]
+        seq = self.batches
+        self.batches += 1
+        with span("submit", seq):
+            return _Handle([
+                (dets, None) if row.copy_stream is None else self._start_copy(row, dets)
+                for row, dets in zip(self._rows, self._dispatch(sweep_imgs, mats_dict))],
+                seq)
 
     def fetch(self, handle) -> List[list]:
         """The per-sample detections of a `submit`ted batch (waits for it)."""
         out = []
-        for dets, done in handle:
-            if done is not None:
-                done.synchronize()
-            out += self._collect(dets)
+        with span("fetch", handle.seq):
+            for dets, done in handle:
+                if done is not None:
+                    with span("fetch.wait"):
+                        done.synchronize()
+                with span("collect"):
+                    out += self._collect(dets)
         return out
 
     def stream(self, batches: Iterable) -> Iterable[List[list]]:

@@ -11,6 +11,7 @@ from typing import NamedTuple
 import torch
 
 from sgv3d_tpu_torch.config import HeadConfig
+from sgv3d_tpu_torch.train.profiling import span
 
 
 class Detections(NamedTuple):
@@ -50,12 +51,41 @@ def _device_vector(values, dtype, device) -> torch.Tensor:
 
 
 def decode(cfg: HeadConfig, preds: list) -> Detections:
-    """Decode all task heads into a fixed-size detection set."""
+    """Decode all task heads into a fixed-size detection set (the span
+    `sgv3d.decode`, with `decode.rank` and `decode.nms` inside)."""
+    t_n = len(cfg.tasks)
+    ncs = [t.num_classes for t in cfg.tasks]
+    b = preds[0]["heatmap"].shape[0]
+    dev = preds[0]["heatmap"].device
+    with span("decode"):
+        with span("decode.rank"):
+            scores, cls, boxes, valid = _ranked(cfg, preds)
+        radii = _device_vector(cfg.nms_min_radius, torch.float32, dev)
+        offsets = _device_vector([sum(ncs[:i]) for i in range(t_n)], torch.int64, dev)
+        with span("decode.nms"):
+            keep = circle_nms(boxes[..., :2], valid, radii[None, :])
+        # stable kept-first order (already score-ordered), first post_max_size
+        pm = cfg.post_max_size
+        order = torch.sort((~keep).to(torch.uint8), dim=-1, stable=True)[1][..., :pm]
+        out_valid = (torch.arange(pm, device=dev)
+                     < keep.sum(-1, keepdim=True))                  # (B, T, pm)
+        boxes = torch.take_along_dim(boxes, order[..., None], dim=2)
+        scores = torch.take_along_dim(scores, order, dim=2) * out_valid
+        labels = torch.take_along_dim(cls, order, dim=2) + offsets[:, None]
+        return Detections(boxes.reshape(b, t_n * pm, 9),
+                          scores.reshape(b, t_n * pm),
+                          labels.reshape(b, t_n * pm),
+                          out_valid.reshape(b, t_n * pm))
+
+
+def _ranked(cfg: HeadConfig, preds: list):
+    """Each task's k = min(max_per_task, H * W) best (cell, class) pairs by
+    heatmap score, as (scores, class, boxes (B, T, k, 9), valid), each
+    (B, T, k, ...) in descending score order."""
     t_n = len(cfg.tasks)
     ncs = [t.num_classes for t in cfg.tasks]
     nc_max = max(ncs)
     b, h, w, _ = preds[0]["heatmap"].shape
-    dev = preds[0]["heatmap"].device
     k = min(cfg.max_per_task, h * w)
 
     # (B, T, H*W, nc_max) heatmap logits, padded classes at -inf; ranked over
@@ -100,19 +130,4 @@ def decode(cfg: HeadConfig, preds: list) -> Detections:
     boxes = torch.stack(
         [x, y, height - dim[..., 2] * 0.5, dim[..., 0], dim[..., 1],
          dim[..., 2], yaw, vel[..., 0], vel[..., 1]], dim=-1)  # (B, T, k, 9)
-
-    radii = _device_vector(cfg.nms_min_radius, torch.float32, dev)
-    offsets = _device_vector([sum(ncs[:i]) for i in range(t_n)], torch.int64, dev)
-    keep = circle_nms(boxes[..., :2], valid, radii[None, :])
-    # stable kept-first order (already score-ordered), first post_max_size
-    pm = cfg.post_max_size
-    order = torch.sort((~keep).to(torch.uint8), dim=-1, stable=True)[1][..., :pm]
-    out_valid = (torch.arange(pm, device=dev)
-                 < keep.sum(-1, keepdim=True))                  # (B, T, pm)
-    boxes = torch.take_along_dim(boxes, order[..., None], dim=2)
-    scores = torch.take_along_dim(scores, order, dim=2) * out_valid
-    labels = torch.take_along_dim(cls, order, dim=2) + offsets[:, None]
-    return Detections(boxes.reshape(b, t_n * pm, 9),
-                      scores.reshape(b, t_n * pm),
-                      labels.reshape(b, t_n * pm),
-                      out_valid.reshape(b, t_n * pm))
+    return scores, cls, boxes, valid

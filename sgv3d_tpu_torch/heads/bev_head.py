@@ -20,6 +20,7 @@ from sgv3d_tpu_torch.config import HeadConfig
 from sgv3d_tpu_torch.nn.blocks import ConvBNReLU, SeparateTaskBranch
 from sgv3d_tpu_torch.nn.resnet import ResNet
 from sgv3d_tpu_torch.nn.second_fpn import SECONDFPN
+from sgv3d_tpu_torch.train.profiling import span
 
 
 class BEVHeightHead(nn.Module):
@@ -54,12 +55,20 @@ class BEVHeightHead(nn.Module):
 
     def forward(self, bev):
         """bev (B, Y, X, C). Returns a list over tasks of dicts of (B, H, W, c)
-        float32 tensors: reg, height, dim, rot, vel, heatmap."""
+        float32 tensors: reg, height, dim, rot, vel, heatmap. Its stages
+        are the spans `sgv3d.head.trunk`, `.neck`, `.shared_conv` and
+        `.branches` (`train.profiling.span`)."""
         bf16 = self.dtype == torch.bfloat16
         x = bev.to(torch.bfloat16 if bf16 else torch.float32)
         x = x.permute(0, 3, 1, 2).contiguous()
         with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
-            x = self.shared_conv(self.neck([x] + self.trunk(x)))
-            return [{name: getattr(self, f"task{ti}_{name}")(x).float()
-                     .permute(0, 2, 3, 1) for name in names}
-                    for ti, names in enumerate(self.branch_names)]
+            with span("head.trunk"):
+                feats = self.trunk(x)
+            with span("head.neck"):
+                x = self.neck([x] + feats)
+            with span("head.shared_conv"):
+                x = self.shared_conv(x)
+            with span("head.branches"):
+                return [{name: getattr(self, f"task{ti}_{name}")(x).float()
+                         .permute(0, 2, 3, 1) for name in names}
+                        for ti, names in enumerate(self.branch_names)]

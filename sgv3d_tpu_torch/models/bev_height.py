@@ -15,6 +15,7 @@ from sgv3d_tpu_torch.losses.focal import multiclass_focal_loss
 from sgv3d_tpu_torch.nn import bev_slabs
 from sgv3d_tpu_torch.nn.lss_fpn import BSMLSSFPN, LSSFPN
 from sgv3d_tpu_torch.ops.resize import resize_bilinear
+from sgv3d_tpu_torch.train.profiling import span
 
 
 def normalize_images(imgs: torch.Tensor, cfg: ExpConfig) -> torch.Tensor:
@@ -65,16 +66,18 @@ class BEVHeight(nn.Module):
         (assist, assist) pair for BEVHeight, the (semantic0, semantic1)
         logits for SGV3D, NCHW. `train=True` is the train step's forward
         (all-bin lift with its gradient, `nn.lss_fpn`); BatchNorm and
-        dropout follow `module.train()`."""
+        dropout follow `module.train()`. The head runs in the span
+        `sgv3d.head` (`train.profiling.span`)."""
         sweep_imgs = normalize_images(sweep_imgs, self.cfg)
         bev, aux = self.backbone(sweep_imgs, mats, cells, pix_keep, train=train)
-        if self.bev_devices is None:
-            return self.head(bev), aux
-        slabs = bev_slabs.split(bev.permute(0, 3, 1, 2), self.bev_devices,
-                                bev_slabs.total_stride(self.head), self.head_replicas)
-        return [{name: bev_slabs.gather(s, bev.device).permute(0, 2, 3, 1)
-                 for name, s in task.items()}
-                for task in bev_slabs.head(self.head, slabs)], aux
+        with span("head"):
+            if self.bev_devices is None:
+                return self.head(bev), aux
+            slabs = bev_slabs.split(bev.permute(0, 3, 1, 2), self.bev_devices,
+                                    bev_slabs.total_stride(self.head), self.head_replicas)
+            return [{name: bev_slabs.gather(s, bev.device).permute(0, 2, 3, 1)
+                     for name, s in task.items()}
+                    for task in bev_slabs.head(self.head, slabs)], aux
 
 
 def downsample_semantic_labels(gt_semantic: torch.Tensor,

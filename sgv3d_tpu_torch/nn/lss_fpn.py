@@ -14,6 +14,10 @@ the card), or with `cfg.train_lift_top_k` the top-k bins picked by
 gradient), detaches the BEV maps of past sweeps, and with
 `cfg.remat_backbone` recomputes the image ResNet in the backward
 (`torch.utils.checkpoint`).
+
+Under a running `torch.profiler` the image side (backbone to HeightNet or
+MSCThead) is the span `sgv3d.image` and each sweep's lift (K1 and K2)
+`sgv3d.lift` (`train.profiling.span`).
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ from sgv3d_tpu_torch.nn.second_fpn import SECONDFPN
 from sgv3d_tpu_torch.ops.lift_splat import LiftSplat, lift_splat_forward
 from sgv3d_tpu_torch.ops.voxel_pooling import (
     flatten_voxel_index, topk_lift_inputs_hwd)
+from sgv3d_tpu_torch.train.profiling import span
 
 BG_THRESHOLD = 0.45     # SGV3D keeps a pixel while P(background) <= this
 
@@ -208,8 +213,8 @@ class LSSFPN(nn.Module):
             # past sweeps feed the BEV map but get no gradient
             with torch.set_grad_enabled(torch.is_grad_enabled() and sweep == 0):
                 imgs = sweep_imgs[:, sweep].reshape(b * n, *sweep_imgs.shape[3:])
-                with torch.autocast(imgs.device.type, dtype=torch.bfloat16,
-                                    enabled=self.use_bf16):
+                with span("image"), torch.autocast(
+                        imgs.device.type, dtype=torch.bfloat16, enabled=self.use_bf16):
                     feat = self.img_neck(_image_features(
                         self.img_backbone, imgs.permute(0, 3, 1, 2),
                         remat and sweep == 0))
@@ -217,10 +222,11 @@ class LSSFPN(nn.Module):
                     if sweep == 0:
                         assist = self.assist_layer(feat)
                 height = torch.softmax(h_logits.float(), dim=1).permute(0, 2, 3, 1)
-                maps.append(_lift_and_splat(
-                    cfg, height, context.permute(0, 2, 3, 1), mats, sweep,
-                    cells if sweep == 0 else None,
-                    pix_keep if sweep == 0 else None, train))
+                with span("lift"):
+                    maps.append(_lift_and_splat(
+                        cfg, height, context.permute(0, 2, 3, 1), mats, sweep,
+                        cells if sweep == 0 else None,
+                        pix_keep if sweep == 0 else None, train))
         out = torch.cat(maps, dim=-1) if s > 1 else maps[0]
         return out, (assist, assist)
 
@@ -261,8 +267,8 @@ class BSMLSSFPN(nn.Module):
             # past sweeps feed the BEV map but get no gradient
             with torch.set_grad_enabled(torch.is_grad_enabled() and sweep == 0):
                 imgs = sweep_imgs[:, sweep].reshape(b * n, *sweep_imgs.shape[3:])
-                with torch.autocast(imgs.device.type, dtype=torch.bfloat16,
-                                    enabled=self.use_bf16):
+                with span("image"), torch.autocast(
+                        imgs.device.type, dtype=torch.bfloat16, enabled=self.use_bf16):
                     feats = _image_features(self.img_backbone,
                                             imgs.permute(0, 3, 1, 2),
                                             remat and sweep == 0)
@@ -273,10 +279,11 @@ class BSMLSSFPN(nn.Module):
                 # background suppression: drop pixels with P(background) > thr
                 keep = background_keep(semantic)
                 tran_feat = torch.cat([context1.float(), semantic], dim=1) * keep
-                maps.append(_lift_and_splat(
-                    cfg, height, tran_feat.permute(0, 2, 3, 1), mats, sweep,
-                    cells if sweep == 0 else None,
-                    pix_keep if sweep == 0 else None, train))
+                with span("lift"):
+                    maps.append(_lift_and_splat(
+                        cfg, height, tran_feat.permute(0, 2, 3, 1), mats, sweep,
+                        cells if sweep == 0 else None,
+                        pix_keep if sweep == 0 else None, train))
             if sweep == 0:
                 aux = (semantic0, semantic1)
         out = torch.cat(maps, dim=-1) if s > 1 else maps[0]

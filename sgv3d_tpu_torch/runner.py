@@ -285,19 +285,6 @@ def evaluate(cfg: ExpConfig, ckpt_path: str | None = None,
     return out
 
 
-def _timed(batches, waits: list):
-    """Yield from `batches`, appending the seconds each `next` blocked."""
-    it = iter(batches)
-    while True:
-        t0 = time.perf_counter()
-        try:
-            batch = next(it)
-        except StopIteration:
-            return
-        waits.append(time.perf_counter() - t0)
-        yield batch
-
-
 def _evaluate_state(cfg: ExpConfig, predictor: BEVHeightPredictor, loader,
                     dataset, data_root: str, output_dir: str,
                     stats: dict | None = None):
@@ -322,14 +309,16 @@ def _evaluate_state(cfg: ExpConfig, predictor: BEVHeightPredictor, loader,
         img_metas.extend(metas[:n_real])
 
     # dispatch batch i, then read back batch i-1 while i computes
-    waits, batch_s = [], []
-    batches = _timed(loader, waits)
+    prof, batch_s = profiling.SimpleProfiler(), []
+    batches = profiling.profile_iter(prof, "data_wait", loader)
     t0 = time.perf_counter()
     for _ in pipelined(batches, dispatch, lambda p: collect(*p)):
         batch_s.append(time.perf_counter() - t0)
         t0 = time.perf_counter()
     if stats is not None:
-        stats.update(batch_s=batch_s, loader_wait_s=waits,
+        # each batch's wait; the last wait is the `next` that found the
+        # loader done
+        stats.update(batch_s=batch_s, loader_wait_s=prof.times["data_wait"][:-1],
                      loader_build_s=loader.build_s)
 
     dist.synchronize()

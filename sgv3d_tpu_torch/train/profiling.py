@@ -1,8 +1,8 @@
 """Tracing and profiling (torch port of `sgv3d_tpu.train.profiling`): a
-`torch.profiler` trace context, a device fence and a call timer (the one
-every measuring tool of `sgv3d_tpu_torch.tools` times through), and a
-per-section wall-clock profiler in the shape of Lightning's 'simple'
-profiler."""
+`torch.profiler` trace context, the program's own named spans in it, a
+device fence and a call timer (the one every measuring tool of
+`sgv3d_tpu_torch.tools` times through), and a per-section wall-clock
+profiler in the shape of Lightning's 'simple' profiler."""
 from __future__ import annotations
 
 import contextlib
@@ -12,6 +12,10 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+from torch._C._autograd import _profiler_enabled
+from torch._C._profiler import _RecordFunctionFast
+
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -25,6 +29,20 @@ def trace(log_dir: str):
             activities=activities,
             on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)):
         yield
+
+
+def span(name: str, seq: int | None = None):
+    """A context manager: while a `torch.profiler` runs, the block is a
+    range `sgv3d.<name>` in its trace, on the clock of the device's events,
+    with the batch's sequence number `seq` (where given) as its keyword
+    input `seq` (recorded under `record_shapes=True`). With no profiler
+    running it costs one test of a flag and records nothing. The range is
+    an operator-level one, not a user annotation: it adds no event of its
+    own to the device's track, so a trace's device events are those of the
+    kernels and copies alone."""
+    if not _profiler_enabled():
+        return _OFF
+    return _RecordFunctionFast("sgv3d." + name, [], {} if seq is None else {"seq": seq})
 
 
 def _leaves(tree):
@@ -127,7 +145,9 @@ def profile_iter(prof: "SimpleProfiler", name: str, iterable):
 
 
 class SimpleProfiler:
-    """Per-section wall times: totals, counts and each call's seconds."""
+    """Per-section wall times: totals, counts and each call's seconds. Each
+    section is also the span `sgv3d.train.<name>` in a running profiler's
+    trace (`span`)."""
 
     def __init__(self):
         self.totals = defaultdict(float)
@@ -138,7 +158,8 @@ class SimpleProfiler:
     def profile(self, name: str):
         t0 = time.perf_counter()
         try:
-            yield
+            with span("train." + name):
+                yield
         finally:
             dt = time.perf_counter() - t0
             self.totals[name] += dt

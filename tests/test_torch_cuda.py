@@ -21,7 +21,9 @@ same bins picked; the tiny SAM encoder card vs CPU within 1e-4 of scale;
 two gloo ranks sharing the card take the tiny train steps of one process
 on the concatenated batch, under the train step's gates; `voxel_pooling`
 (K2 and K2b at J = 1) within 1e-5 of scale of its plain version, its
-gradient exactly the plain one's, bitwise equal across calls.
+gradient exactly the plain one's, bitwise equal across calls. The
+serving path's spans on the card: the copy and its wait, no device event
+of their own, three kernels a step of decode's NMS loop.
 """
 import numpy as np
 import pytest
@@ -328,6 +330,47 @@ def test_tiny_predictor_card_matches_cpu(cuda_device):
     """chip_smoke's tiny phase: the served slice on the card (float32) and
     on the CPU agree."""
     chip_smoke.phase_tiny(cuda_device)     # raises on any disagreement
+
+
+def test_predictor_spans_on_the_card(cuda_device):
+    """On the card `sgv3d.submit` also holds `sgv3d.copy` and `sgv3d.fetch`
+    `sgv3d.fetch.wait`; the spans add no event to the device's track; and
+    `sgv3d.decode.nms` launches three kernels a step of circle_nms's loop
+    (k = min(max_per_task, H * W) steps) and a few before it."""
+    from torch.autograd import DeviceType
+
+    from sgv3d_tpu_torch.api import BEVHeightPredictor
+    from sgv3d_tpu_torch.data.synthetic import make_batch
+    from sgv3d_tpu_torch.weights import seeded_state_dict
+
+    cfg = chip_smoke.tiny_serving_exp(4, False)
+    imgs, mats, *_ = make_batch(cfg, batch=2, seed=1, num_objs=2)
+    pred = BEVHeightPredictor(cfg, seeded_state_dict(cfg, seed=1), device=cuda_device,
+                              use_bf16=False)
+    _, h, w, _ = pred.predict_heads(imgs, mats)[0]["heatmap"].shape
+    pred.fetch(pred.submit(imgs, mats))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        pred.fetch(pred.submit(imgs, mats))
+    events = list(prof.profiler.kineto_results.events())
+    host = [e for e in events if e.device_type() == DeviceType.CPU]
+
+    def spans(name):
+        return [(e.start_ns(), e.end_ns()) for e in host if e.name() == name]
+
+    def within(inner, outer):
+        return all(any(a <= s and t <= b for a, b in spans(outer)) for s, t in spans(inner))
+
+    for name, parent in (("sgv3d.copy", "sgv3d.submit"),
+                         ("sgv3d.fetch.wait", "sgv3d.fetch")):
+        assert len(spans(name)) == 1 and within(name, parent), name
+    assert not [e.name() for e in events
+                if e.device_type() == DeviceType.CUDA and e.name().startswith("sgv3d.")]
+    (nms,) = spans("sgv3d.decode.nms")
+    launches = [e for e in host if "LaunchKernel" in e.name()
+                and nms[0] <= e.start_ns() <= nms[1]]
+    k = min(cfg.head.max_per_task, h * w)
+    assert 3 * k <= len(launches) <= 3 * k + 16, (len(launches), k)
 
 
 def test_tiny_evaluate_card_matches_cpu(cuda_device):
