@@ -17,7 +17,9 @@ gradient), detaches the BEV maps of past sweeps, and with
 
 Under a running `torch.profiler` the image side (backbone to HeightNet or
 MSCThead) is the span `sgv3d.image` and each sweep's lift (K1 and K2)
-`sgv3d.lift` (`train.profiling.span`).
+`sgv3d.lift` (`train.profiling.span`), holding `sgv3d.lift.topk` (the
+top-k pick, K1, with the cells it gathers from the rig's table) and
+`sgv3d.lift.splat` (the pooling, K2).
 """
 from __future__ import annotations
 
@@ -129,21 +131,23 @@ def _lift_and_splat(cfg: BackboneConfig, height_prob, tran_feat, mats, sweep,
 
     ctx = tran_feat.float().reshape(b * n, f_h * f_w, -1)
     if k is not None:
-        hp_hwd = height_prob.float().reshape(b * n, f_h * f_w, d)
-        if pix_keep is not None:
-            hp_hwd = hp_hwd.index_select(1, pix_keep)
-            ctx = ctx.index_select(1, pix_keep)
-        hp, cell = topk_lift_inputs_hwd(hp_hwd, cell, k, train)
+        with span("lift.topk"):
+            hp_hwd = height_prob.float().reshape(b * n, f_h * f_w, d)
+            if pix_keep is not None:
+                hp_hwd = hp_hwd.index_select(1, pix_keep)
+                ctx = ctx.index_select(1, pix_keep)
+            hp, cell = topk_lift_inputs_hwd(hp_hwd, cell, k, train)
     else:
         hp = height_prob.float().permute(0, 3, 1, 2).reshape(b * n, d, f_h * f_w)
         cell = cell.reshape(b * n, d, f_h * f_w)
     args = (hp.contiguous(), ctx.contiguous(), cell.contiguous(), b,
             num_y * num_x)
-    if train:
-        # the backward tiles the uncut fH x fW map in 2-D patches
-        bev = LiftSplat.apply(*args, f_w if pix_keep is None else None)
-    else:
-        bev = lift_splat_forward(*args)
+    with span("lift.splat"):
+        if train:
+            # the backward tiles the uncut fH x fW map in 2-D patches
+            bev = LiftSplat.apply(*args, f_w if pix_keep is None else None)
+        else:
+            bev = lift_splat_forward(*args)
     return bev.reshape(b, num_y, num_x, -1)
 
 

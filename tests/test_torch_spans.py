@@ -1,9 +1,10 @@
 """The port's own spans and counters (`train.profiling.span`): on only while
 a `torch.profiler` runs, nested as the serving path's layers are, the
 batch's sequence number on `submit` and `fetch`, decode's NMS loop visible
-op by op, the static-rig cache's hits and misses, and the `SimpleProfiler`
-sections as `sgv3d.train.*` ranges. On the CPU, with the tiny serving
-exps; the card's `copy` and `fetch.wait` spans are in `test_torch_cuda.py`.
+op by op, the lift's pick and pool apart, the static-rig cache's hits and
+misses, and the `SimpleProfiler` sections as `sgv3d.train.*` ranges. On
+the CPU, with the tiny serving exps; the card's `copy` and `fetch.wait`
+spans are in `test_torch_cuda.py`.
 """
 import dataclasses
 import time
@@ -26,6 +27,8 @@ PARENTS = {
     "sgv3d.forward": "sgv3d.submit",
     "sgv3d.image": "sgv3d.forward",
     "sgv3d.lift": "sgv3d.forward",
+    "sgv3d.lift.topk": "sgv3d.lift",
+    "sgv3d.lift.splat": "sgv3d.lift",
     "sgv3d.head": "sgv3d.forward",
     "sgv3d.head.trunk": "sgv3d.head",
     "sgv3d.head.neck": "sgv3d.head",
@@ -110,6 +113,23 @@ def test_every_span_once_a_batch_nested(is_bsm):
             if parent is not None:
                 assert p.time_range.start <= e.time_range.start
                 assert e.time_range.end <= p.time_range.end
+
+
+@pytest.mark.parametrize("top_k", [4, None], ids=["top_k", "all_bins"])
+def test_lift_spans_split_the_pick_from_the_pool(top_k):
+    """`sgv3d.lift` holds `sgv3d.lift.topk` (K1's pick of the bins and their
+    cells) before `sgv3d.lift.splat` (K2's pooling); the all-bin lift picks
+    nothing, so it opens the pool's span alone."""
+    cfg = chip_smoke.tiny_serving_exp(top_k, True)
+    imgs, mats, *_ = make_batch(cfg, batch=2, seed=1, num_objs=2)
+    pred = BEVHeightPredictor(cfg, seeded_state_dict(cfg, seed=1), device="cpu")
+    _, events = _profiled(lambda: _serve(pred, imgs, mats, batches=1))
+    (lift,) = [e for e in events if e.name == "sgv3d.lift"]
+    inner = [d for d in _descendants(lift) if d.name.startswith("sgv3d.")]
+    want = ["sgv3d.lift.topk", "sgv3d.lift.splat"] if top_k else ["sgv3d.lift.splat"]
+    assert [e.name for e in sorted(inner, key=lambda e: e.time_range.start)] == want
+    (splat,) = [e for e in inner if e.name == "sgv3d.lift.splat"]
+    assert [d for d in _descendants(splat) if d.name.startswith("aten::")]
 
 
 def test_submit_and_fetch_carry_the_batch_sequence_number():
